@@ -1,0 +1,279 @@
+"""Batched discrete-ordinates flux solve, end to end in lanes layout.
+
+Counterpart of ``pythonic_disort_tpu/models/disort/batch_solve.py::
+solve_batched`` on its flux-only path.  Every tensor a kernel consumes
+keeps the batch last, ``(..., Q)``, with the eigen-stage lane order
+``q = (m, l, s)`` (mode-major, solve fastest), so per-mode slices are
+contiguous and the reshape to the BVP layout ``(L, ..., NF*S)`` never
+crosses the lane dimension:
+
+- the phase-function kernels D+/D- are built in lanes by per-mode
+  matmuls over the Legendre contraction;
+- the eigen stage is `ops.eig.disort_eigh_lanes` (CUDA kernel 1);
+- the BVP is `ops.cuda_blocktri.solve_bvp_fused` (CUDA kernel 2), fed the
+  eigenvector blocks, decays and bottom boundary rows;
+- the flux quadrature ``(mu W) @ G C`` is folded into per-layer tables
+  (``fvec_*``, ``fb_*``), so ``G`` and ``GC`` are never materialized.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ...ops.cuda_blocktri import solve_bvp_fused
+from ...ops.eig import disort_eigh_lanes
+from ...ops.legendre import normalized_assoc_legendre_host
+from ...ops.quadrature import double_gauss
+from .types import DisortProblem, DisortSolution
+
+
+def _mat_lanes(A, x):
+    """(n, k, q), (k, q) -> (n, q)."""
+    return torch.einsum("ikq,kq->iq", A, x)
+
+
+class _Tables(NamedTuple):
+    mu: torch.Tensor             # (N,) quadrature nodes
+    w: torch.Tensor              # (N,) weights
+    leg_weights: torch.Tensor    # (NLeg_all,) 2l + 1
+    lam_mu: torch.Tensor         # (NF, NLeg, N) Legendre basis at the nodes
+    mode_mask: torch.Tensor      # (NF, NLeg) l >= m
+    parity: torch.Tensor         # (NF, NLeg) (-1)^(l - m) where l >= m
+    bdrf_delta: torch.Tensor     # (NF,) 2 for m = 0, else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(nquad, nleg, nleg_all, nfourier, dtype, device) -> _Tables:
+    """Tables that depend on the configuration alone, built on the host once
+    per (configuration, dtype, device) and kept there: a copy from pageable
+    host memory synchronizes the stream, so a solve makes none."""
+    const = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    mu, w = double_gauss(nquad)
+    ms = np.arange(nfourier)[:, None]
+    lseq = np.arange(nleg)[None, :]
+    return _Tables(
+        mu=const(mu),
+        w=const(w),
+        leg_weights=const(2 * np.arange(nleg_all) + 1),
+        lam_mu=const(normalized_assoc_legendre_host(nfourier, nleg, mu)),
+        mode_mask=const((lseq >= ms).astype(np.float64)),
+        parity=const(np.where(lseq >= ms, (-1.0) ** (lseq - ms), 0.0)),
+        bdrf_delta=const(np.where(np.arange(nfourier) == 0, 2.0, 1.0)),
+    )
+
+
+def solve_batched(problem: DisortProblem, boundary_probe_tau=None) -> DisortSolution:
+    """Solve a batch of atmospheres for fluxes; all tensors carry a leading S.
+
+    Returns a batched `DisortSolution` with ``G = GC = None``; the flux
+    evaluator (`eval.fluxes_all`) reads the ``fvec_*``/``fb_*`` tables.
+    """
+    cfg = problem.config
+    if boundary_probe_tau is not None:
+        raise NotImplementedError(
+            "boundary_probe_tau (intensity at layer probes) is not ported yet: ROADMAP queue 1, module 5")
+    if cfg.has_iso:
+        raise NotImplementedError(
+            "isotropic internal sources are not ported yet: ROADMAP queue 1, module 4")
+    if not cfg.only_flux:
+        raise NotImplementedError(
+            "intensity output (only_flux=False) is not ported yet: ROADMAP queue 1, module 4")
+    if cfg.has_beam and problem.lam_mu0 is None:
+        raise NotImplementedError(
+            "the on-device Legendre table at -mu0 is not ported: build the problem with "
+            "make_batched_problem, which tabulates it on the host")
+    N, NF, L = cfg.n, cfg.nfourier, cfg.nlayers
+    NLeg, NB = cfg.nleg, cfg.nbdrf
+
+    tau_arr = problem.tau_arr                                    # (S, L)
+    dtype, device = tau_arr.dtype, tau_arr.device
+    S = tau_arr.shape[0]
+    omega_arr, f_arr = problem.omega_arr, problem.f_arr
+    mu0, I0, phi0 = problem.mu0, problem.I0, problem.phi0        # (S,)
+    tab = _tables(cfg.nquad, NLeg, cfg.nleg_all, NF, dtype, device)
+    mu, w = tab.mu, tab.w
+    M_inv = 1.0 / mu
+
+    zeros_s1 = torch.zeros((S, 1), dtype=dtype, device=device)
+    thickness = torch.diff(tau_arr, dim=-1, prepend=zeros_s1)
+    weighted_leg_all = tab.leg_weights[None, None, :] * problem.leg_coeffs_all
+    leg = problem.leg_coeffs_all[..., :NLeg]
+
+    # ---- delta-M scaling (reference pydisort.py:313-344) ----
+    if cfg.has_deltam:
+        scale_tau = 1.0 - omega_arr * f_arr
+        scaled_tau_with_0 = torch.cat(
+            [zeros_s1, torch.cumsum(scale_tau * thickness, dim=-1)], dim=-1)
+        scaled_leg = (leg - f_arr[..., None]) / (1.0 - f_arr)[..., None]
+        scaled_omega = (1.0 - f_arr) / scale_tau * omega_arr
+    else:
+        scale_tau = torch.ones((S, L), dtype=dtype, device=device)
+        scaled_tau_with_0 = torch.cat([zeros_s1, tau_arr], dim=-1)
+        scaled_leg = leg
+        scaled_omega = omega_arr
+    weighted_scaled_leg = scaled_leg * tab.leg_weights[None, None, :NLeg]
+
+    # ---- source rescaling for conditioning (reference pydisort.py:348-373) ----
+    b_pos, b_neg = problem.b_pos, problem.b_neg                  # (S, N, NF)
+    rescale = torch.stack(
+        [I0, b_pos.amax(dim=(1, 2)), b_neg.amax(dim=(1, 2))], dim=-1).amax(dim=-1)
+    rescale = torch.where(rescale > 0, rescale, torch.ones_like(rescale))
+    I0 = I0 / rescale
+    b_pos = b_pos / rescale[:, None, None]
+    b_neg = b_neg / rescale[:, None, None]
+    I0_div_4pi = I0 / (4.0 * math.pi)
+
+    # ---- phase-function kernels, built directly in lanes layout ----
+    lam_mu, mode_mask, parity = tab.lam_mu, tab.mode_mask, tab.parity
+
+    # base[s, l, c] = (omega_l / 2)(2c+1) g_{l,c}; per-mode masked below
+    base_c = (scaled_omega[..., None] / 2.0) * weighted_scaled_leg
+    LS = L * S
+    base_lanes = base_c.permute(2, 1, 0).reshape(NLeg, LS)      # (NLeg, L*S)
+    Dp_parts, Dm_parts = [], []
+    for m in range(NF):
+        lamlam = (lam_mu[m][:, :, None] * lam_mu[m][:, None, :]).reshape(NLeg, N * N)
+        cm = mode_mask[m][:, None] * base_lanes
+        Dp_parts.append((lamlam.T @ cm).reshape(N, N, LS))
+        Dm_parts.append(((lamlam * parity[m][:, None]).T @ cm).reshape(N, N, LS))
+    Dp_l = torch.stack(Dp_parts, dim=2).reshape(N, N, NF * LS)  # q = (m, l, s)
+    Dm_l = torch.stack(Dm_parts, dim=2).reshape(N, N, NF * LS)
+
+    # ---- batched eigen stage, lanes in / lanes out ----
+    K_pos, X, Y, P, Q = disort_eigh_lanes(Dp_l, Dm_l, mu, w)   # (N[, N], Q)
+    a_blk = 0.5 * (X + Y)
+    b_blk = 0.5 * (X - Y)
+    G_l = torch.cat(
+        [torch.cat([a_blk, b_blk], dim=1), torch.cat([b_blk, a_blk], dim=1)], dim=0)
+    K_full = torch.cat([-K_pos, K_pos], dim=0)                   # (2N, Q)
+
+    def per_mode(x_sl):
+        """(S, L) per-solve quantity -> (Q,) lanes (broadcast over modes)."""
+        return x_sl.T[None].expand(NF, L, S).reshape(NF * LS)
+
+    # ---- beam particular solution (reference _solve...py:209-231) ----
+    if cfg.has_beam:
+        lam_m0 = problem.lam_mu0.permute(1, 2, 0)               # (NF, NLeg, S)
+        xf_parts_p, xf_parts_n = [], []
+        for m in range(NF):
+            delta_m0 = 1.0 if m == 0 else 2.0
+            fac = (2.0 * delta_m0) * (mode_mask[m][:, None] * base_lanes).reshape(
+                NLeg, L, S) * (I0_div_4pi[None, None, :] * lam_m0[m][:, None, :])
+            fac = fac.reshape(NLeg, LS)
+            xf_parts_p.append(lam_mu[m].T @ fac)                 # (N, LS)
+            xf_parts_n.append(lam_mu[m].T @ (parity[m][:, None] * fac))
+        Xp = torch.stack(xf_parts_p, dim=1).reshape(N, NF * LS)
+        Xn = torch.stack(xf_parts_n, dim=1).reshape(N, NF * LS)
+        xp, xn = M_inv[:, None] * Xp, -M_inv[:, None] * Xn
+        Pp, Pn = _mat_lanes(P, xp), _mat_lanes(P, xn)
+        Qp, Qn = _mat_lanes(Q, xp), _mat_lanes(Q, xn)
+        y_top = 0.5 * (Pp + Qp + Pn - Qn)
+        y_bot = 0.5 * (Pp - Qp + Pn + Qn)
+        mu0_q = per_mode(mu0[:, None].expand(S, L))
+        ycat = torch.cat([y_top, y_bot], dim=0) / (1.0 / mu0_q + K_full)
+        zt, zb = ycat[:N], ycat[N:]
+        B_l = torch.cat([_mat_lanes(a_blk, zt) + _mat_lanes(b_blk, zb),
+                         _mat_lanes(b_blk, zt) + _mat_lanes(a_blk, zb)], dim=0)
+    else:
+        B_l = torch.zeros((2 * N, NF * LS), dtype=dtype, device=device)
+
+    # ---- BDRF operators (reference _solve_for_coeffs.py:118-135) ----
+    mu_w = mu * w
+    NFS = NF * S
+    R_pad = torch.zeros((S, NF, N, N), dtype=dtype, device=device)
+    X_bdrf = torch.zeros((S, NF, N), dtype=dtype, device=device)
+    has_bdrf = NB > 0
+    if has_bdrf:
+        nb = min(NB, NF)
+        delta = tab.bdrf_delta[None, :nb, None, None]
+        R_pad[:, :nb] = delta * problem.bdrf_modes[:, :nb] * mu_w[None, None, None, :]
+        if cfg.has_beam:
+            X_bdrf[:, :nb] = (4.0 * mu0 * I0_div_4pi)[:, None, None] * problem.bdrf_modes_mu0[:, :nb]
+    R_l = R_pad.permute(2, 3, 1, 0).reshape(N, N, NFS)
+    X_bdrf_l = X_bdrf.permute(2, 1, 0).reshape(N, NFS)
+
+    # ---- BVP operands, L-major lanes (L, rows, cols, NF*S) ----
+    Gt = G_l.reshape(2 * N, 2 * N, NF, L, S).movedim(3, 0).reshape(L, 2 * N, 2 * N, NFS)
+    sthick = scaled_tau_with_0[:, 1:] - scaled_tau_with_0[:, :-1]   # (S, L)
+    decay_q = torch.exp(-K_pos * per_mode(sthick)[None, :])         # (N, Q)
+    decay_t = decay_q.reshape(N, NF, L, S).permute(2, 0, 1, 3).reshape(L, N, NFS)
+
+    # Bottom BC rows: (G_pn - R G_nn) decay | (G_pp - R G_np)
+    GL = Gt[-1]
+    if has_bdrf:
+        bot_left = (GL[:N, :N] - torch.einsum("ijq,jkq->ikq", R_l, GL[N:, :N])) * decay_t[-1][None]
+        bot_right = GL[:N, N:] - torch.einsum("ijq,jkq->ikq", R_l, GL[N:, N:])
+    else:
+        bot_left = GL[:N, :N] * decay_t[-1][None]
+        bot_right = GL[:N, N:]
+    Bt_rows = torch.cat([bot_left, bot_right], dim=1)            # (N, 2N, NFS)
+
+    # ---- RHS (reference _solve_for_coeffs.py:139-256) ----
+    B5 = B_l.reshape(2 * N, NF, L, S)
+    rhs_top = b_neg.permute(1, 2, 0)                             # (N, NF, S)
+    rhs_bot = b_pos.permute(1, 2, 0)
+    if cfg.has_beam:
+        beam_decay_bot = torch.exp(-scaled_tau_with_0[:, -1] / mu0)     # (S,)
+        rhs_top = rhs_top - B5[N:, :, 0, :]
+        RB = (torch.einsum("ijq,jq->iq", R_l, B5[N:, :, -1, :].reshape(N, NFS)).reshape(N, NF, S)
+              if has_bdrf else 0.0)
+        rhs_bot = rhs_bot + (X_bdrf_l.reshape(N, NF, S) + RB - B5[:N, :, -1, :]) \
+            * beam_decay_bot[None, None, :]
+    if L > 1:
+        cont_rhs = torch.zeros((L - 1, 2 * N, NF, S), dtype=dtype, device=device)
+        if cfg.has_beam:
+            bdecay = torch.exp(-scaled_tau_with_0[:, 1:-1] / mu0[:, None])   # (S, L-1)
+            diffB = (B5[:, :, 1:, :] - B5[:, :, :-1, :]).permute(2, 0, 1, 3)
+            cont_rhs = cont_rhs + diffB * bdecay.T[:, None, None, :]
+        rhs_t = torch.cat(
+            [torch.cat([rhs_top[None], cont_rhs[:, N:]], dim=0),
+             torch.cat([cont_rhs[:, :N], rhs_bot[None]], dim=0)], dim=1,
+        ).reshape(L, 2 * N, NFS)
+    else:
+        rhs_t = torch.cat([rhs_top, rhs_bot], dim=0).reshape(1, 2 * N, NFS)
+
+    C_t = solve_bvp_fused(Gt.contiguous(), decay_t.contiguous(),
+                          Bt_rows.contiguous(), rhs_t.contiguous())   # (L, 2N, NFS)
+
+    # ---- flux tables: quadrature contraction folded in lanes ----
+    C0 = C_t.reshape(L, 2 * N, NF, S)[:, :, 0, :]                # (L, 2N, S)
+    G0t = Gt.reshape(L, 2 * N, 2 * N, NF, S)[..., 0, :]          # (L, 2N, 2N, S)
+    fvec_up = (torch.einsum("i,lijs->ljs", mu_w, G0t[:, :N]) * C0).permute(2, 0, 1)
+    fvec_dn = (torch.einsum("i,lijs->ljs", mu_w, G0t[:, N:]) * C0).permute(2, 0, 1)
+    fb_up = torch.einsum("i,ils->sl", mu_w, B5[:N, 0])           # (S, L)
+    fb_dn = torch.einsum("i,ils->sl", mu_w, B5[N:, 0])
+    no_iso = torch.zeros((S, L, 1), dtype=dtype, device=device)
+
+    return DisortSolution(
+        config=cfg,
+        G=None,
+        K=K_full.reshape(2 * N, NF, L, S).permute(3, 1, 2, 0),
+        GC=None,
+        B=B5.permute(3, 1, 2, 0),                                # (S, NF, L, 2N)
+        mathscr_b=torch.zeros((S, L, 2 * N, 1), dtype=dtype, device=device),
+        tau_arr=tau_arr,
+        scaled_tau_with_0=scaled_tau_with_0,
+        scale_tau=scale_tau,
+        mu_arr_pos=mu[None].expand(S, N),
+        W=w[None].expand(S, N),
+        mu0=mu0,
+        I0=I0,
+        phi0=phi0,
+        rescale_factor=rescale,
+        omega_arr=omega_arr,
+        f_arr=f_arr,
+        scaled_omega_arr=scaled_omega,
+        weighted_leg_all=weighted_leg_all,
+        weighted_scaled_leg=weighted_scaled_leg,
+        fvec_up=fvec_up,
+        fvec_dn=fvec_dn,
+        fb_up=fb_up,
+        fb_dn=fb_dn,
+        fi_up=no_iso,
+        fi_dn=no_iso,
+    )

@@ -1,0 +1,101 @@
+"""The fused eigen stage: CUDA kernel ``csrc/eig_stage.cu`` and its plain
+PyTorch version.
+
+Counterpart of ``pythonic_disort_tpu/ops/pallas_eig.py``.  Per lane b of
+the lanes-layout operands ``At``, ``Bt`` (n, n, B)::
+
+    L = chol(-Bt);  M = L^T (-At) L;  K^2, Z = eigh(M);  K = sqrt(max(K^2, tiny))
+    V = L^-T Z,  Yr = -(L Z) / K,  Pr = (L Z)^T,  Qr = -K V^T
+
+`eig_stage_lanes` launches the kernel for CUDA tensors and runs
+`eig_stage_lanes_plain` for CPU tensors.  The two differ in the order of
+the eigen columns (the kernel's one-sided Jacobi leaves them unsorted),
+which no consumer depends on: the boundary-value coefficients adapt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+
+def jacobi_sweeps(dtype: torch.dtype) -> int:
+    """Fixed one-sided Jacobi sweep count for n <= 32 (ops/jacobi.py):
+    5 in float32 (4 failed Stamnes golden 5a), 9 in float64."""
+    return 9 if dtype == torch.float64 else 5
+
+
+def eig_stage_lanes_plain(At: torch.Tensor, Bt: torch.Tensor):
+    """Plain PyTorch eigen stage on (n, n, B) lanes operands.
+
+    Returns ``(K (n, B), V, Yr, Pr, Qr (n, n, B))`` with K ascending.
+    """
+    A = At.permute(2, 0, 1)
+    Bm = Bt.permute(2, 0, 1)
+    L = torch.linalg.cholesky(-Bm)
+    M = L.transpose(-1, -2) @ (-A) @ L
+    K2, Z = torch.linalg.eigh(M)
+    K = torch.sqrt(torch.clamp(K2, min=torch.finfo(At.dtype).tiny))
+    V = torch.linalg.solve_triangular(L.transpose(-1, -2), Z, upper=True)
+    LZ = L @ Z
+    Yr = -LZ / K[:, None, :]
+    Pr = LZ.transpose(-1, -2)
+    Qr = -K[:, :, None] * V.transpose(-1, -2)
+    lanes = lambda x: x.permute(1, 2, 0).contiguous()
+    return K.T.contiguous(), lanes(V), lanes(Yr), lanes(Pr), lanes(Qr)
+
+
+_FN = {torch.float32: "eig_stage_f32", torch.float64: "eig_stage_f64"}
+
+
+def _kernel(dtype):
+    fn = getattr(_build.load("eig_stage"), _FN[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(At: torch.Tensor, Bt: torch.Tensor) -> None:
+    if At.device.type != "cuda" or Bt.device != At.device:
+        raise ValueError("eig_stage_lanes: At and Bt must be CUDA tensors on one device")
+    if At.dtype not in _FN or Bt.dtype != At.dtype:
+        raise TypeError(f"eig_stage_lanes: float32 or float64 expected, got {At.dtype}/{Bt.dtype}")
+    if At.dim() != 3 or At.shape[0] != At.shape[1] or Bt.shape != At.shape:
+        raise ValueError(f"eig_stage_lanes: (n, n, B) operands expected, got {tuple(At.shape)}, {tuple(Bt.shape)}")
+    n, _, B = At.shape
+    if n % 2 or not 2 <= n <= 32 or B < 1:
+        # the round-robin Jacobi schedule pairs rows (ops/jacobi.py)
+        raise ValueError(f"eig_stage_lanes: the kernel takes even n <= 32 and B >= 1, got {tuple(At.shape)}")
+    if not (At.is_contiguous() and Bt.is_contiguous()):
+        raise ValueError("eig_stage_lanes: contiguous operands expected")
+    if At.requires_grad or Bt.requires_grad:
+        raise NotImplementedError("eig_stage_lanes: no gradient yet (ROADMAP queue 1, module 8)")
+
+
+def eig_stage_lanes(At: torch.Tensor, Bt: torch.Tensor):
+    """Fused eigen stage on (n, n, B) lanes operands.
+
+    CPU tensors take `eig_stage_lanes_plain`; CUDA tensors launch the
+    kernel (counted in ``eig_stage_lanes.launches``) or raise.
+    """
+    if At.device.type == "cpu" and Bt.device.type == "cpu":
+        return eig_stage_lanes_plain(At, Bt)
+    _check(At, Bt)
+    n, _, B = At.shape
+    K = torch.empty((n, B), dtype=At.dtype, device=At.device)
+    V, Yr, Pr, Qr = (torch.empty_like(At) for _ in range(4))
+    err = _kernel(At.dtype)(
+        At.data_ptr(), Bt.data_ptr(), K.data_ptr(), V.data_ptr(), Yr.data_ptr(),
+        Pr.data_ptr(), Qr.data_ptr(), n, B, jacobi_sweeps(At.dtype),
+        torch.cuda.current_stream(At.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"eig_stage kernel launch failed: CUDA error {err}")
+    eig_stage_lanes.launches += 1
+    return K, V, Yr, Pr, Qr
+
+
+eig_stage_lanes.launches = 0

@@ -1,0 +1,44 @@
+"""Symmetrized discrete-ordinates eigensolver, lanes layout.
+
+Counterpart of ``pythonic_disort_tpu/ops/eig.py::disort_eigh_lanes``.
+With ``c = diag(sqrt(w mu))`` and ``rho = diag(sqrt(w / mu))`` the two
+half-size operators become symmetric (Stamnes & Swanson 1981)::
+
+    At = rho ((D+ - D-) - W^-1) rho,    Bt = rho ((D+ + D-) - W^-1) rho
+
+and the eigen stage (`cuda_eig.eig_stage_lanes`) diagonalizes ``At Bt``
+through one Cholesky congruence.  This module builds At/Bt and applies
+the diagonal ``c`` scalings that take the stage's outputs back to the
+physical eigenbasis.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda_eig import eig_stage_lanes
+
+
+def disort_eigh_lanes(Dp_l: torch.Tensor, Dm_l: torch.Tensor, mu: torch.Tensor,
+                      w: torch.Tensor):
+    """Eigenpairs of the discrete-ordinates system on lanes operands.
+
+    ``Dp_l``, ``Dm_l``: (N, N, B) symmetric kernels (omega/2-weighted);
+    ``mu``, ``w``: (N,).  Returns ``(K (N, B), X, Y, P, Q (N, N, B))``:
+    the columns of X are eigenvectors of ``(alpha - beta)(alpha + beta)``,
+    ``Y = (alpha + beta) X / K``, ``P = X^-1`` and ``Q = Y^-1``.
+    """
+    rho = torch.sqrt(w / mu)
+    c = torch.sqrt(w * mu)
+    outer_rho = (rho[:, None] * rho[None, :])[:, :, None]
+    inv_mu_diag = torch.diag(1.0 / mu)[:, :, None]
+
+    At = (outer_rho * (Dp_l - Dm_l) - inv_mu_diag).contiguous()
+    Bt = (outer_rho * (Dp_l + Dm_l) - inv_mu_diag).contiguous()
+
+    K, V, Yr, Pr, Qr = eig_stage_lanes(At, Bt)
+    X = V / c[:, None, None]
+    Y = Yr / c[:, None, None]
+    P = Pr * c[None, :, None]
+    Q = Qr * c[None, :, None]
+    return K, X, Y, P, Q

@@ -1,0 +1,90 @@
+"""The port's BVP solve held against the JAX package (CPU, float64).
+
+Operands come from numpy with a seed: well-conditioned eigenvector blocks
+G (identity plus a small random part), decays in (0.05, 0.95), bottom
+boundary rows and right-hand sides.  The JAX side assembles the blocks
+(``ops.blocktri.assemble_bvp_blocks``) and runs its lanes block-Thomas
+(``solve_block_tridiag_lanes``, the plain jnp path on the CPU); the port
+runs ``ops.cuda_blocktri.solve_bvp_fused``, which on CPU tensors is its
+plain assemble + pivoted block-Thomas.  The solution is unique, so x is
+compared directly.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pythonic_disort_tpu.ops import blocktri as jbt
+from pythonic_disort_torch.ops import blocktri, cuda_blocktri
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    # six xdist workers share the machine
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+def _operands(L, N, B, seed):
+    rng = np.random.default_rng(seed)
+    n2 = 2 * N
+    Gt = np.eye(n2)[None, :, :, None] + 0.3 * rng.standard_normal((L, n2, n2, B)) / np.sqrt(n2)
+    decay = rng.uniform(0.05, 0.95, (L, N, B))
+    bt_rows = np.concatenate(
+        [np.eye(N)[:, :, None] + 0.2 * rng.standard_normal((N, N, B)),
+         0.2 * rng.standard_normal((N, N, B))], axis=1)
+    rhs = rng.standard_normal((L, n2, B))
+    return Gt, decay, bt_rows, rhs
+
+
+@pytest.mark.parametrize("L,N,B", [(1, 2, 5), (2, 4, 9), (5, 4, 16), (8, 8, 3)])
+def test_bvp_solve_matches_jax(L, N, B):
+    ops = _operands(L, N, B, seed=10 * L + N)
+    jops = [jnp.asarray(x) for x in ops]
+    lower, diag, upper = jbt.assemble_bvp_blocks(*jops[:3])
+    x_ref = np.asarray(jbt.solve_block_tridiag_lanes(lower, diag, upper, jops[3]))
+    x = cuda_blocktri.solve_bvp_fused(*(torch.as_tensor(o) for o in ops)).numpy()
+    # the same pivoted elimination in f64 on a well-conditioned system:
+    # agreement to roundoff, 1e-10 relative leaves a wide margin
+    np.testing.assert_allclose(x, x_ref, rtol=1e-10, atol=1e-12 * np.abs(x_ref).max())
+
+
+@pytest.mark.parametrize("L", [1, 3])
+def test_assemble_bvp_blocks_matches_jax(L):
+    ops = _operands(L, 3, 4, seed=L)
+    ref = jbt.assemble_bvp_blocks(*(jnp.asarray(x) for x in ops[:3]))
+    out = blocktri.assemble_bvp_blocks(*(torch.as_tensor(x) for x in ops[:3]))
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+
+
+def test_gauss_jordan_pivots():
+    """A zero leading entry needs a row exchange; unpivoted elimination
+    would divide by zero (the Stamnes 4c failure mode)."""
+    rng = np.random.default_rng(0)
+    n, m, b = 6, 3, 5
+    D = rng.standard_normal((n, n, b))
+    D[0, 0, :] = 0.0
+    Aug = rng.standard_normal((n, m, b))
+    X = blocktri.gauss_jordan_solve_lanes(torch.as_tensor(D), torch.as_tensor(Aug)).numpy()
+    for k in range(b):
+        np.testing.assert_allclose(X[..., k], np.linalg.solve(D[..., k], Aug[..., k]),
+                                   rtol=1e-11, atol=1e-12)
+
+
+def test_bvp_wrapper_cpu_takes_plain_and_counts_no_launch():
+    ops = [torch.as_tensor(o) for o in _operands(3, 2, 4, seed=5)]
+    before = cuda_blocktri.solve_bvp_fused.launches
+    x = cuda_blocktri.solve_bvp_fused(*ops)
+    assert cuda_blocktri.solve_bvp_fused.launches == before
+    torch.testing.assert_close(x, cuda_blocktri.solve_bvp_fused_plain(*ops), rtol=0, atol=0)
+
+
+def test_bvp_wrapper_refuses_non_cuda_non_cpu_tensors():
+    ops = [torch.empty(s, device="meta") for s in ((2, 4, 4, 8), (2, 2, 8), (2, 4, 8), (2, 4, 8))]
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_blocktri.solve_bvp_fused(*ops)
