@@ -3,27 +3,40 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pythonic_disort_torch/csrc``, holds
-each kernel against its plain PyTorch version on inputs taken from a real
-main-path solve, drives the main path (the batched flux-only sweep of
-``bench.py``: 64 layers, NQuad=32, 128 bands per column, 8-column chunks,
-delta-M beam, float32) through ``make_batched_problem`` and
-``solve_fluxes``, checks it against the port's float64 CPU result, and
-times it.  Every failed check raises, so the exit code is nonzero.
+each kernel against its plain PyTorch version on inputs taken from real
+solves, and drives both paths of the port:
 
-Its last two lines are a JSON line of per-kernel numbers and
-``{"ok": true, "device": {...}}``.  Without CUDA it exits nonzero and
-prints no result.  It imports nothing of JAX.
+- the batched flux-only sweep of ``bench.py`` (64 layers, NQuad=32, 128
+  bands per column, 8-column chunks, delta-M beam, float32) through
+  ``make_batched_problem`` and ``solve_fluxes``, checked against the
+  port's float64 CPU result, timed and traced;
+- the single-column ``pydisort`` in float32: the Stamnes goldens of
+  ``tests/data/stamnes`` at the reference thresholds, a 64-layer column at
+  NQuad=32 with 32 Fourier modes against the port's float64 CPU result,
+  and a batched NQuad=48 call, which takes the generic block-Thomas kernel.
+
+Every failed check raises, so the exit code is nonzero.  Its last two
+lines are a JSON line of per-kernel numbers and ``{"ok": true, "device":
+{...}}``.  Without CUDA it exits nonzero and prints no result.  It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+import warnings
 from collections import Counter
+from contextlib import contextmanager
+from math import pi
+from pathlib import Path
 
 import numpy as np
+
+DATA = Path(__file__).resolve().parent / "tests" / "data"
 
 NBANDS, NLAYERS, NQUAD = 128, 64, 32
 CHUNK_COLS, REF_COLS, N_CHUNKS, REPS = 8, 2, 8, 3
@@ -105,6 +118,57 @@ def rows(arrs, n):
     return {k: v[:n] for k, v in arrs.items()}
 
 
+def column_kwargs(nt_cor=False):
+    """``pydisort`` arguments of one 64-layer column of the bench generator
+    (column 0, band 0) with intensity: NQuad = 32 and 32 Fourier modes."""
+    a = rows(bench_arrays(1), 1)
+    return dict(tau_arr=a["tau"][0], omega_arr=a["omega"][0], NQuad=NQUAD, Leg_coeffs_all=a["leg"][0],
+                mu0=float(a["mu0"][0]), I0=float(a["I0"][0]), phi0=1.0, f_arr=a["f_arr"][0], NT_cor=nt_cor)
+
+
+def golden_cases():
+    """The Stamnes cases whose inputs need numpy and ``tests/data`` alone
+    (families 1-5, 8, 9a, 9b of ``tests/test_stamnes.py``), as
+    ``name -> (pydisort arguments, degrees masked around the beam)``."""
+    def unit(n, second=0.0):
+        leg = np.zeros(n)
+        leg[0], leg[2] = 1.0, second
+        return leg
+
+    cases = {}
+    for name, tau, omega in [("1a", 0.03125, 0.2), ("1b", 0.03125, 1 - 1e-6), ("1c", 0.03125, 0.99),
+                             ("1d", 32, 0.2), ("1e", 32, 1 - 1e-6), ("1f", 32, 0.99)]:
+        cases[name] = (dict(tau_arr=tau, omega_arr=omega, NQuad=16, Leg_coeffs_all=unit(17),
+                            mu0=0.1, I0=pi / 0.1, phi0=pi), 0)
+    for name, tau, omega in [("2a", 0.2, 0.5), ("2b", 0.2, 1 - 1e-6), ("2c", 5, 0.5), ("2d", 5, 1 - 1e-6)]:
+        cases[name] = (dict(tau_arr=tau, omega_arr=omega, NQuad=16, Leg_coeffs_all=unit(17, second=0.1),
+                            mu0=0.080442, I0=pi, phi0=pi), 0)
+    hg = 0.75 ** np.arange(32)
+    for name, tau in [("3a", 1), ("3b", 8)]:
+        cases[name] = (dict(tau_arr=tau, omega_arr=1 - 1e-6, NQuad=16, Leg_coeffs_all=hg,
+                            mu0=1, I0=pi, phi0=pi, f_arr=hg[16], NT_cor=True), 0)
+    haze = np.load(DATA / "leg_coeffs_4.npy") / (2 * np.arange(83) + 1)
+    for name, omega, mu0 in [("4a", 1 - 1e-6, 1), ("4b", 0.9, 1), ("4c", 0.9, 0.5)]:
+        cases[name] = (dict(tau_arr=1, omega_arr=omega, NQuad=32, Leg_coeffs_all=haze,
+                            mu0=mu0, I0=pi, phi0=pi, f_arr=haze[32], NT_cor=True), 0)
+    cloud = np.load(DATA / "leg_coeffs_5.npy") / (2 * np.arange(300) + 1)
+    for name, omega in [("5a", 1 - 1e-6), ("5b", 0.9)]:
+        cases[name] = (dict(tau_arr=64, omega_arr=omega, NQuad=48, Leg_coeffs_all=cloud,
+                            mu0=1, I0=pi, phi0=pi, f_arr=cloud[48], NT_cor=True), 10)
+    for name, tau, omega in [("8a", [0.25, 0.5], [0.5, 0.3]), ("8b", [0.25, 0.5], [0.8, 0.95]),
+                             ("8c", [1, 3], [0.8, 0.95])]:
+        cases[name] = (dict(tau_arr=np.array(tau, np.float64), omega_arr=np.array(omega, np.float64), NQuad=8,
+                            Leg_coeffs_all=np.tile(unit(9), (2, 1)), mu0=0, I0=0, phi0=0, b_neg=1 / pi), 0)
+    tau9 = np.array([np.arange(i + 2).sum() for i in range(6)], np.float64)
+    omega9 = 0.6 + np.arange(1, 7) * 0.05
+    leg9b = np.array([1, 2.00916, 1.56339, 0.67407, 0.22215, 0.04725, 0.00671, 0.00068, 0.00005]) \
+        / (2 * np.arange(9) + 1)
+    for name, leg in [("9a", unit(9)), ("9b", leg9b)]:
+        cases[name] = (dict(tau_arr=tau9, omega_arr=omega9, NQuad=8, Leg_coeffs_all=np.tile(leg, (6, 1)),
+                            mu0=0, I0=0, phi0=0, b_neg=1 / pi), 0)
+    return cases
+
+
 def phase_function_operands(n, B, seed, dtype, device):
     """At, Bt (n, n, B) of the eigen stage for one Fourier mode of random
     Henyey-Greenstein layers (albedo 0.2-0.99): the operands a solve at
@@ -127,29 +191,50 @@ def phase_function_operands(n, B, seed, dtype, device):
     return t(outer * (Dp - Dm) - inv_mu), t(outer * (Dp + Dm) - inv_mu)
 
 
+class Recorder:
+    """Stands in for a kernel wrapper: keeps a copy of the operands of its
+    last call and passes them on.  The wrapper counts its launches on
+    whatever its module-level name holds, so the count is handed through."""
+
+    def __init__(self, wrapper):
+        self.wrapper, self.operands = wrapper, None
+
+    def __call__(self, *ops):
+        self.operands = tuple(x.clone() for x in ops)
+        return self.wrapper(*ops)
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.wrapper.launches = value
+
+
+@contextmanager
+def recording(module, name):
+    """Record the operands that ``module.name`` (a kernel wrapper) is given."""
+    rec = Recorder(getattr(module, name))
+    setattr(module, name, rec)
+    try:
+        yield rec
+    finally:
+        setattr(module, name, rec.wrapper)
+
+
 def capture_kernel_inputs(problem, tau):
-    """Run the main path once, keeping copies of both kernels' operands."""
+    """Run the batched path once, keeping copies of its kernels' operands:
+    ``eig``, and ``bvp`` (2N <= 32) or ``blocktri`` (wider)."""
     from pythonic_disort_torch import solve_fluxes
     from pythonic_disort_torch.models.disort import batch_solve as bs_mod
     from pythonic_disort_torch.ops import eig as eig_mod
 
-    got = {}
-    orig_eig, orig_bvp = eig_mod.eig_stage_lanes, bs_mod.solve_bvp_fused
-
-    def rec_eig(At, Bt):
-        got["eig"] = (At.clone(), Bt.clone())
-        return orig_eig(At, Bt)
-
-    def rec_bvp(*ops):
-        got["bvp"] = tuple(x.clone() for x in ops)
-        return orig_bvp(*ops)
-
-    eig_mod.eig_stage_lanes, bs_mod.solve_bvp_fused = rec_eig, rec_bvp
-    try:
+    with recording(eig_mod, "eig_stage_lanes") as eig, \
+            recording(bs_mod, "solve_bvp_fused") as bvp, \
+            recording(bs_mod, "solve_block_tridiag_lanes_cuda") as blocktri:
         solve_fluxes(problem, tau)
-    finally:
-        eig_mod.eig_stage_lanes, bs_mod.solve_bvp_fused = orig_eig, orig_bvp
-    return got
+    return {"eig": eig.operands, "bvp": bvp.operands, "blocktri": blocktri.operands}
 
 
 # ----------------------------------------------------------------- timing
@@ -203,6 +288,16 @@ def bvp_flops(L, N):
     gj = 4 * N * (4 * N * N + 3 * N)
     back = 8 * N * N
     return (L - 1) * corr + L * gj + (L - 1) * back
+
+
+def blocktri_flops(L, n):
+    """Operations of the generic block-Thomas solve per lane, as the
+    algorithm needs them: the layer correction [D | r] - Low [W | g]
+    (L-1 layers, 2n^2(n+1)), the Gauss-Jordan elimination of the
+    n x (2n+1) system with the columns behind the pivot skipped
+    (L layers, 2n sum_k (2n+1-k) = 3n^2(n+1)) and the back substitution
+    (L-1 layers, 2n^2)."""
+    return (L - 1) * 2 * n * n * (n + 1) + L * 3 * n * n * (n + 1) + (L - 1) * 2 * n * n
 
 
 # ------------------------------------------------------------ eigen checks
@@ -311,6 +406,37 @@ def bvp_checks(ops, label):
     return err.max().item(), rel
 
 
+def lane_rel_err(x, ref):
+    """Largest per-lane error of ``x`` (L, n, B), relative to the lane's
+    largest |ref|; also the largest absolute error."""
+    err = (x.double() - ref.double()).abs()
+    return err.max().item(), (err.amax(dim=(0, 1)) / ref.double().abs().amax(dim=(0, 1))).max().item()
+
+
+def blocktri_checks(ops, label, fused_x=None):
+    """The generic block-Thomas kernel vs its plain version in float64 on the
+    same blocks (the ignored edge blocks zeroed for the plain version), and
+    vs the fused kernel's x where that is given."""
+    import torch
+    from pythonic_disort_torch.ops.blocktri import solve_block_tridiag_lanes
+    from pythonic_disort_torch.ops.cuda_blocktri import solve_block_tridiag_lanes_cuda
+
+    x = solve_block_tridiag_lanes_cuda(*ops)
+    torch.cuda.synchronize()
+    xp = solve_block_tridiag_lanes(*(o.double().nan_to_num(0.0) for o in ops))
+    err, rel = lane_rel_err(x, xp)
+    log(f"  {label}: max |x - x64| {err:.3e}, per-lane rel {rel:.3e}")
+    check(torch.isfinite(x).all().item(), f"{label}: x finite")
+    # the limits of bvp_checks: the same pivoted elimination
+    tol = 1e-3 if x.dtype == torch.float32 else 1e-9
+    check(rel < tol, f"{label}: x within {tol:g} of the float64 plain solve (per lane)")
+    if fused_x is not None:
+        _, rel_fused = lane_rel_err(x, fused_x)
+        log(f"  {label}: per-lane rel against solve_bvp_fused {rel_fused:.3e}")
+        check(rel_fused < tol, f"{label}: x within {tol:g} of the fused kernel's x (per lane)")
+    return err, rel
+
+
 # ------------------------------------------------------------------ phases
 def phase_device():
     import torch
@@ -331,13 +457,28 @@ def phase_build():
     t0 = time.perf_counter()
     _build.build(_build.kernel_sources())
     log(f"built {_build.kernel_sources()} in {time.perf_counter() - t0:.1f} s")
+    # what ptxas reports for every kernel variant (the template arguments are
+    # the mangled part: f/d for float/double, then LiNE for each integer N)
+    entry = re.compile(
+        r"Compiling entry function '\S*?kernelI(\w+?)EvP\S*' for.*?(\d+) bytes stack frame, (\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads.*?Used (\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", re.S)
+    for name in _build.kernel_sources():
+        report = _build._target(name).with_suffix(".log").read_text()
+        for args, stack, st, ld, regs, smem in entry.findall(report):
+            log(f"  ptxas {name}<{args}>: {regs} registers, stack {stack} B, spill stores {st} B, "
+                f"spill loads {ld} B, static shared {smem or 0} B")
 
 
 def phase_kernels(main_ops):
     import torch
-    from pythonic_disort_torch.ops.cuda_blocktri import solve_bvp_fused, solve_bvp_fused_plain
+    from pythonic_disort_torch import pydisort
+    from pythonic_disort_torch.ops import cuda_blocktri
+    from pythonic_disort_torch.ops.blocktri import assemble_bvp_blocks, solve_block_tridiag_lanes
+    from pythonic_disort_torch.ops.cuda_blocktri import (
+        solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain)
     from pythonic_disort_torch.ops.cuda_eig import (
         eig_stage_lanes, eig_stage_lanes_plain, jacobi_sweeps)
+    from pythonic_disort_torch.tools.check_blocktri import random_blocks
 
     log("phase 3: kernels against their plain versions")
     At, Bt = main_ops["eig"]
@@ -364,6 +505,28 @@ def phase_kernels(main_ops):
     five = capture_kernel_inputs(*make_problem(bench_arrays(8, seed=7, nlayers=5), torch.float64, "cuda"))
     bvp_checks(tuple(o[..., :1001].contiguous() for o in five["bvp"]), "bvp L=5 B=1001 f64 (ragged)")
 
+    # the generic block-Thomas kernel: explicit blocks from the same operands,
+    # against its plain version and against the fused kernel's x
+    bt_main = tuple(x.contiguous() for x in (*assemble_bvp_blocks(*ops[:3]), ops[3]))
+    shape = lambda o: f"L={o[1].shape[0]} n={o[1].shape[1]} B={o[1].shape[3]}"
+    bt_abs, bt_rel = blocktri_checks(bt_main, f"blocktri {shape(bt_main)} f32 (main-path blocks)",
+                                     fused_x=solve_bvp_fused(*ops))
+    bt_wide = capture_kernel_inputs(*make_problem(
+        bench_arrays(CHUNK_COLS, seed=11, nquad=48), torch.float32, "cuda", nquad=48))["blocktri"]
+    blocktri_checks(bt_wide, f"blocktri {shape(bt_wide)} f32 (NQuad=48 batched solve)")
+    wide64 = capture_kernel_inputs(*make_problem(
+        bench_arrays(1, seed=12, nlayers=6, nquad=48), torch.float64, "cuda", nquad=48))["blocktri"]
+    blocktri_checks(tuple(o[..., :33].contiguous() for o in wide64), "blocktri L=6 n=48 B=33 f64 (ragged)")
+    with recording(cuda_blocktri, "solve_block_tridiag_lanes_cuda") as rec:
+        pydisort(**column_kwargs(), dtype=torch.float32, device="cuda")
+    bt_col = rec.operands
+    blocktri_checks(bt_col, f"blocktri {shape(bt_col)} f32 (single-column solve)")
+    # general dense blocks; the edge blocks lower[0], upper[L-1] hold NaN
+    for L_, n_, B_, dt in [(1, 16, 7, torch.float32), (3, 8, 1, torch.float32), (5, 32, 33, torch.float32),
+                           (4, 48, 7, torch.float32), (6, 64, 9, torch.float64), (3, 2, 40, torch.float64)]:
+        blocktri_checks(random_blocks(L_, n_, B_, 100 * L_ + n_, dt),
+                        f"blocktri L={L_} n={n_} B={B_} {str(dt).removeprefix('torch.')} (dense, NaN edge blocks)")
+
     log("timing kernels at the main-path shapes (CUDA events)")
     n, B = At.shape[0], At.shape[2]
     eig_ms = cuda_ms(lambda: eig_stage_lanes(At, Bt), 20)
@@ -382,6 +545,29 @@ def phase_kernels(main_ops):
     log(f"  eig_stage: {eig_ms:.4f} ms (plain {eig_plain_ms:.3f} ms, torch.linalg.eigh on M "
         f"{eigh_ms:.3f} ms, bound {eig_bound:.4f} ms by {eig_by})")
     log(f"  bvp_fused: {bvp_ms:.4f} ms (plain {bvp_plain_ms:.3f} ms, bound {bvp_bound:.4f} ms by {bvp_by})")
+
+    def time_blocktri(o, what, reps, plain_reps):
+        """ms, plain ms, bound ms and what bounds it, at the shape of ``o``."""
+        L_, n_, _, B_ = o[1].shape
+        # each input once (the two ignored edge blocks never), x once; the
+        # [W | g] stack is scratch and is logged beside the bound
+        nbytes = (sum(x.numel() for x in o) - 2 * n_ * n_ * B_ + o[3].numel()) * o[1].element_size()
+        bound, by = bound_ms(nbytes, blocktri_flops(L_, n_) * B_, str(o[1].dtype).removeprefix("torch."))
+        ms = cuda_ms(lambda: solve_block_tridiag_lanes_cuda(*o), reps)
+        plain = cuda_ms(lambda: solve_block_tridiag_lanes(*o), plain_reps) if plain_reps else None
+        scratch = 2 * L_ * n_ * (n_ + 1) * B_ * o[1].element_size()
+        log(f"  blocktri {shape(o)}, {what}: {ms:.4f} ms (plain {'not timed' if plain is None else f'{plain:.3f} ms'}, "
+            f"bound {bound:.4f} ms by {by}: {nbytes / 1e9:.3f} GB in and out, {blocktri_flops(L_, n_) * B_:.3e} FLOP; "
+            f"scratch stack written and read {scratch / 1e9:.3f} GB)")
+        return dict(shape=shape(o), blocks=what, ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+
+    bt_main_t = time_blocktri(bt_main, "main-path blocks", 20, 2)
+    # the kernel's time depends on the data only through the arithmetic's
+    # slow paths: random dense blocks of the column's shape beside its own
+    bt_others = [time_blocktri(bt_wide, "NQuad=48 batched solve", 10, 1),
+                 time_blocktri(bt_col, "single-column solve", 20, 2),
+                 time_blocktri(random_blocks(*bt_col[3].shape, 1, torch.float32),
+                               "random dense blocks", 20, 0)]
     return [
         dict(name="eig_stage", route="cuda", source="pythonic_disort_torch/csrc/eig_stage.cu",
              replaces="pythonic_disort_tpu/ops/pallas_eig.py:172",
@@ -394,25 +580,46 @@ def phase_kernels(main_ops):
              replaces_function="solve_bvp_fused_pallas",
              launches=None, max_abs_err=bvp_abs, max_err=bvp_rel, ms=bvp_ms, plain_ms=bvp_plain_ms,
              bound_ms=bvp_bound, bound_by=bvp_by, library_ms=None, library_call=None),
+        dict(name="blocktri", route="cuda", source="pythonic_disort_torch/csrc/blocktri.cu",
+             replaces="pythonic_disort_tpu/ops/pallas_blocktri.py:553",
+             replaces_function="solve_block_tridiag_lanes_pallas",
+             launches=None, max_abs_err=bt_abs, max_err=bt_rel, ms=bt_main_t["ms"],
+             plain_ms=bt_main_t["plain_ms"], bound_ms=bt_main_t["bound_ms"], bound_by=bt_main_t["bound_by"],
+             library_ms=None, library_call=None, timed_at=bt_main_t["shape"], other_shapes=bt_others),
     ]
+
+
+def wrappers():
+    from pythonic_disort_torch.ops.cuda_blocktri import solve_block_tridiag_lanes_cuda, solve_bvp_fused
+    from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes
+
+    return {"eig_stage": eig_stage_lanes, "bvp_fused": solve_bvp_fused, "blocktri": solve_block_tridiag_lanes_cuda}
+
+
+def reset_launches():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {name: w.launches for name, w in wrappers().items()}
 
 
 def phase_main_path(arrs, problem, tau, kernels):
     import torch
     from pythonic_disort_torch import solve_fluxes
-    from pythonic_disort_torch.ops.cuda_blocktri import solve_bvp_fused
-    from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes
 
     log(f"phase 4: main path, {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}, NQuad={NQUAD}, f32, cuda")
-    eig_stage_lanes.launches = 0
-    solve_bvp_fused.launches = 0
+    reset_launches()
     out = solve_fluxes(problem, tau)
     torch.cuda.synchronize()
-    launches = {"eig_stage": eig_stage_lanes.launches, "bvp_fused": solve_bvp_fused.launches}
+    launches = read_launches()
     log(f"  launches in one chunk: {launches}")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    check(all(v > 0 for v in launches.values()), "both kernels launched on the main path")
+    for k in kernels[:2]:
+        k["launches"], k["launches_on"] = launches[k["name"]], "batched flux path, one chunk"
+    check(launches["eig_stage"] > 0 and launches["bvp_fused"] > 0,
+          "the eigen and fused BVP kernels launched on the main path")
+    check(launches["blocktri"] == 0, "the NQuad=32 chunk does not take the generic block-Thomas kernel")
     check(all(torch.isfinite(x).all().item() for x in out), "fluxes finite")
     check(all(x.shape == (CHUNK_COLS * NBANDS, NLAYERS) for x in out), "fluxes have shape (1024, 64)")
 
@@ -422,11 +629,7 @@ def phase_main_path(arrs, problem, tau, kernels):
     ref = [x.numpy() for x in solve_fluxes(p64, tau64)]
     log(f"  float64 CPU reference ({nref} solves) in {time.perf_counter() - t0:.1f} s")
     for lbl, a, b in zip(("fup", "fdn", "fdir"), ref, out):
-        b = b[:nref].double().cpu().numpy()
-        scale = max(np.abs(a).max(), 1.0)
-        d = np.abs(a - b).max()
-        log(f"  {lbl}: max |f32 - f64| = {d:.3e} (bound {1e-3 * scale:.3e})")
-        check(d < 1e-3 * scale, f"{lbl} within 1e-3 x max(|f|, 1) of float64")
+        within(a, b[:nref].double().cpu().numpy(), lbl)
 
     times = []
     for _ in range(REPS):
@@ -447,20 +650,19 @@ def phase_main_path(arrs, problem, tau, kernels):
     return chunk_ms
 
 
-def phase_trace(problem, tau, chunk_ms):
-    """One main-path chunk under torch.profiler: the card's busy time (the
-    union of its kernel and copy intervals), its idle share against the
-    untraced chunk time, the device work by name, and the host's CUDA
-    runtime calls (launches, copies, synchronizations)."""
+def phase_trace(run, what, wall_ms):
+    """``run()`` once under torch.profiler: the card's busy time (the union
+    of its kernel and copy intervals), its idle share against the untraced
+    time ``wall_ms`` of the same work, the device work by name, and the
+    host's CUDA runtime calls (launches, copies, synchronizations)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from pythonic_disort_torch import solve_fluxes
 
-    log("phase 4, traced: one chunk under torch.profiler")
+    log(f"traced: {what} under torch.profiler")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solve_fluxes(problem, tau)
+        run()
         torch.cuda.synchronize()
     events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -479,7 +681,7 @@ def phase_trace(problem, tau, chunk_ms):
     busy_ms = busy_us / 1e3
     log(f"  device busy {busy_ms:.3f} ms in {len(dev)} device operations "
         f"(first start to last end {window_us / 1e3:.3f} ms); idle share against the "
-        f"untraced chunk ({chunk_ms:.3f} ms): {1 - busy_ms / chunk_ms:.3f}")
+        f"untraced run ({wall_ms:.3f} ms): {1 - busy_ms / wall_ms:.3f}")
     for name, us in per_name.most_common(12):
         log(f"    {us / 1e3:8.3f} ms  x{calls[name]:<4d} {name[:90]}")
     copies = {k: v for k, v in calls.items() if k.startswith(("Memcpy", "Memset"))}
@@ -489,13 +691,125 @@ def phase_trace(problem, tau, chunk_ms):
     log("  host CUDA runtime calls: " + ", ".join(f"{k} x{v}" for k, v in sorted(runtime.items())))
 
 
+def within(a, b, label):
+    """|a - b| < 1e-3 x max(|a|, 1): the float32-against-float64 bound of the
+    main path, for one output of the single-column path."""
+    scale = max(np.abs(a).max(), 1.0)
+    d = np.abs(a - b).max()
+    log(f"  {label}: max |f32 - f64| = {d:.3e} (bound {1e-3 * scale:.3e})")
+    check(d < 1e-3 * scale, f"{label} within 1e-3 x max(|.|, 1) of float64")
+
+
+def run_golden(name, kwargs, deg_around_beam, dtype, device):
+    """One Stamnes case through ``pydisort``; the four readings the reference
+    thresholds apply to (largest relative error where |diff| > 1e-3)."""
+    from pythonic_disort_torch import pydisort
+    from pythonic_disort_torch.utils.compare import compare
+
+    mu_arr, flux_up, flux_down, _, u = pydisort(**kwargs, dtype=dtype, device=device)
+    reorder = np.argsort(mu_arr)
+    away = np.abs(np.arccos(np.abs(mu_arr[reorder])) - np.arccos(kwargs["mu0"])) * 180 / pi
+    out = compare(np.load(DATA / "stamnes" / f"{name}_test.npz"), away > deg_around_beam, reorder,
+                  flux_up, flux_down, u, verbose=False)
+    worst = lambda diff, ratio: float(np.max(ratio[diff > 1e-3], initial=0))
+    return dict(flux_up=worst(out[0], out[1]), flux_down_diffuse=worst(out[2], out[3]),
+                flux_down_direct=worst(out[4], out[5]), intensity=worst(out[6], out[7]))
+
+
+GOLDEN_LIMITS = dict(flux_up=1e-3, flux_down_diffuse=1e-3, flux_down_direct=1e-3, intensity=1e-2)
+
+
+def phase_single_column(kernels):
+    """The single-column ``pydisort`` in float32 on the card."""
+    import torch
+    from pythonic_disort_torch import pydisort, solve_fluxes
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    log("phase 5: single-column path, pydisort in float32 on the card")
+    cases = golden_cases()
+    margins = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the goldens' albedos near 1 warn, as in the reference
+        for name, (kwargs, deg) in cases.items():
+            got = run_golden(name, kwargs, deg, **f32)
+            margins[name] = max(got[k] / GOLDEN_LIMITS[k] for k in got)
+            log(f"  golden {name}: " + ", ".join(f"{k} {v:.3e}" for k, v in got.items()))
+            check(all(v < GOLDEN_LIMITS[k] for k, v in got.items()),
+                  f"golden {name}: relative errors where |diff| > 1e-3 below 1e-3 (fluxes) and 1e-2 (intensity)")
+    tight = max(margins, key=margins.get)
+    log(f"  {len(cases)} goldens pass in float32; the tightest is {tight} at {margins[tight]:.3f} of its limit")
+
+    log(f"  one column, L={NLAYERS}, NQuad={NQUAD}, NFourier={NQUAD}, intensity")
+    kwargs = column_kwargs()
+    tau = np.linspace(0.0, kwargs["tau_arr"][-1], 8)
+    phi = np.array([0.0, 1.0, 4.0])
+    reset_launches()
+    _, fu, fd, u0, u = pydisort(**kwargs, **f32)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"  launches in one pydisort call: {launches}")
+    kernels[2]["launches"], kernels[2]["launches_on"] = launches["blocktri"], "single-column path, one pydisort call"
+    kernels[0]["launches_single_column"] = launches["eig_stage"]
+    check(launches["eig_stage"] > 0 and launches["blocktri"] > 0,
+          "the eigen and block-Thomas kernels launched on the single-column path")
+    check(launches["bvp_fused"] == 0, "the single-column path does not take the fused BVP kernel")
+    _, fu64, fd64, u064, u64 = pydisort(**kwargs, dtype=torch.float64, device="cpu")
+    within(fu64(tau), fu(tau), "flux_up")
+    for lbl, a, b in zip(("flux_down diffuse", "flux_down direct"), fd64(tau), fd(tau)):
+        within(a, b, lbl)
+    within(u064(tau), u0(tau), "u0")
+    out = u(tau, phi)
+    check(out.shape == (NQUAD, 8, 3) and np.isfinite(out).all(), "u is finite with shape (32, 8, 3)")
+    within(u64(tau, phi), out, "u")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        u_nt = pydisort(**column_kwargs(nt_cor=True), **f32)[4]
+        u_nt64 = pydisort(**column_kwargs(nt_cor=True), dtype=torch.float64, device="cpu")[4]
+    within(u_nt64(tau, phi), u_nt(tau, phi), "u with the NT corrections")
+
+    ncols = 2
+    log(f"  batched flux call at NQuad=48: {ncols} columns x {NBANDS} bands, L={NLAYERS}")
+    arrs = bench_arrays(ncols, seed=13, nquad=48)
+    problem, ptau = make_problem(arrs, torch.float32, "cuda", nquad=48)
+    reset_launches()
+    out = solve_fluxes(problem, ptau)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"  launches: {launches}")
+    kernels[2]["launches_nquad48_chunk"] = launches["blocktri"]
+    check(launches["blocktri"] > 0 and launches["bvp_fused"] == 0,
+          "the NQuad=48 batched solve takes the generic block-Thomas kernel")
+    p64, tau64 = make_problem(arrs, torch.float64, "cpu", nquad=48)
+    for lbl, a, b in zip(("fup", "fdn", "fdir"), solve_fluxes(p64, tau64), out):
+        within(a.numpy(), b.double().cpu().numpy(), f"NQuad=48 {lbl}")
+
+    log("  host-clock time per pydisort call (solve and one flux_up evaluation, synchronized)")
+    timed = {name: cases[name][0] for name in ("1a", "5a", "9b")}
+    timed[f"column L={NLAYERS} NQuad={NQUAD} NFourier={NQUAD}"] = kwargs
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for name, kw in timed.items():
+            top = np.atleast_1d(kw["tau_arr"])[-1]
+            times = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pydisort(**kw, **f32)[1](top)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            log(f"    {name}: first call {times[0]:.3f} ms, then {', '.join(f'{t:.3f}' for t in times[1:])} ms")
+    phase_trace(lambda: pydisort(**kwargs, **f32)[1](kwargs["tau_arr"][-1]),
+                f"phase 5, one pydisort call of the column (L={NLAYERS}, NQuad={NQUAD}, NFourier={NQUAD})",
+                min(times[1:]))
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    import pythonic_disort_torch  # noqa: F401  (fails outside the repository)
+    from pythonic_disort_torch import solve_fluxes      # fails outside the repository
 
     log("phase 1: device")
     phase_device()
@@ -506,7 +820,8 @@ def main():
     main_ops = capture_kernel_inputs(problem, tau)
     kernels = phase_kernels(main_ops)
     chunk_ms = phase_main_path(arrs, problem, tau, kernels)
-    phase_trace(problem, tau, chunk_ms)
+    phase_trace(lambda: solve_fluxes(problem, tau), "phase 4, one main-path chunk", chunk_ms)
+    phase_single_column(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,13 @@
 """pythonic-disort-torch: the PyTorch/CUDA port of pythonic-disort-tpu.
 
-The batched flux solve of the discrete-ordinates radiative-transfer
-solver on an NVIDIA H100.  The JAX package beside it is the reference;
-this package imports neither JAX nor it.  Its two hot stages, the fused
-eigen stage and the fused boundary-value solve, are CUDA kernels written
-for Hopper (``csrc/``), built with nvcc at first use.
+The discrete-ordinates radiative-transfer solver on an NVIDIA H100, on
+two paths: the batched flux solve over columns x bands (`solve_fluxes`)
+and the single-column solve behind the drop-in `pydisort` API.  The JAX
+package beside it is the reference; this package imports neither JAX nor
+it.  Three stages are CUDA kernels written for Hopper (``csrc/``), built
+with nvcc at first use: the fused eigen stage (both paths), the fused
+boundary-value solve (batched path, NQuad <= 32) and the generic
+block-Thomas solve (single-column path; batched path for NQuad 48, 64).
 """
 
 import torch
@@ -16,11 +19,15 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .convert import problem_from_arrays  # noqa: E402
+from .convert import problem_from_arrays, solution_to_arrays  # noqa: E402
+from .models.disort.api import build_problem, pydisort  # noqa: E402
 from .models.disort.batch_solve import solve_batched  # noqa: E402
+from .models.disort.solve import solve  # noqa: E402
 from .models.disort.types import (  # noqa: E402
     DisortConfig, DisortProblem, DisortSolution,
 )
+from .ops.blocktri import solve_block_tridiag  # noqa: E402
+from .ops.eig import disort_eigh  # noqa: E402
 from .parallel.batch import (  # noqa: E402
     fluxes_at, make_batched_problem, solve_fluxes,
 )
@@ -30,5 +37,6 @@ __version__ = "0.1.0"
 __all__ = [
     "DisortConfig", "DisortProblem", "DisortSolution",
     "make_batched_problem", "solve_batched", "fluxes_at", "solve_fluxes",
-    "problem_from_arrays",
+    "build_problem", "pydisort", "solve", "solve_block_tridiag", "disort_eigh",
+    "problem_from_arrays", "solution_to_arrays",
 ]

@@ -1,10 +1,11 @@
-"""Carry a problem across from the JAX package.
+"""Carry problems and solutions between this package and numpy.
 
-The solver has no learned weights; what crosses between the two packages
-is the problem itself.  `problem_from_arrays` turns the leaves of a JAX
-``DisortProblem`` (already converted to numpy by the caller) and its
-config's fields into the port's `DisortProblem`, so both packages solve
-the same inputs.
+The solver has no learned weights; what crosses between the JAX package
+and this one is the problem itself.  `problem_from_arrays` turns the
+leaves of a JAX ``DisortProblem`` (already converted to numpy by the
+caller) and its config's fields into the port's `DisortProblem`, so both
+packages solve the same inputs; `solution_to_arrays` turns a solution
+into numpy arrays, so the two packages' solutions compare field by field.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models.disort.types import DisortConfig, DisortProblem
+from .models.disort.types import DisortConfig, DisortProblem, DisortSolution
 
 _LEAVES = [f.name for f in dataclasses.fields(DisortProblem) if f.name != "config"]
 
@@ -34,3 +35,9 @@ def problem_from_arrays(config_fields: dict, leaves: dict, device, dtype) -> Dis
         for k in _LEAVES
     }
     return DisortProblem(config=DisortConfig(**config_fields), **tensors)
+
+
+def solution_to_arrays(sol: DisortSolution) -> dict:
+    """Every tensor field of a solution as a numpy array (``None`` kept)."""
+    fields = {f.name: getattr(sol, f.name) for f in dataclasses.fields(sol) if f.name != "config"}
+    return {k: None if v is None else v.detach().cpu().numpy() for k, v in fields.items()}

@@ -11,7 +11,11 @@ crosses the lane dimension:
   matmuls over the Legendre contraction;
 - the eigen stage is `ops.eig.disort_eigh_lanes` (CUDA kernel 1);
 - the BVP is `ops.cuda_blocktri.solve_bvp_fused` (CUDA kernel 2), fed the
-  eigenvector blocks, decays and bottom boundary rows;
+  eigenvector blocks, decays and bottom boundary rows, for 2N <= 32
+  streams; wider systems (NQuad = 48, 64) are more than that kernel's one
+  row per thread holds, so their blocks are assembled
+  (`ops.blocktri.assemble_bvp_blocks`) and solved by the generic
+  block-Thomas kernel (`ops.cuda_blocktri.solve_block_tridiag_lanes_cuda`);
 - the flux quadrature ``(mu W) @ G C`` is folded into per-layer tables
   (``fvec_*``, ``fb_*``), so ``G`` and ``GC`` are never materialized.
 """
@@ -25,7 +29,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ...ops.cuda_blocktri import solve_bvp_fused
+from ...ops.blocktri import assemble_bvp_blocks
+from ...ops.cuda_blocktri import FUSED_BLOCK_MAX, solve_block_tridiag_lanes_cuda, solve_bvp_fused
 from ...ops.eig import disort_eigh_lanes
 from ...ops.legendre import normalized_assoc_legendre_host
 from ...ops.quadrature import double_gauss
@@ -237,8 +242,12 @@ def solve_batched(problem: DisortProblem, boundary_probe_tau=None) -> DisortSolu
     else:
         rhs_t = torch.cat([rhs_top, rhs_bot], dim=0).reshape(1, 2 * N, NFS)
 
-    C_t = solve_bvp_fused(Gt.contiguous(), decay_t.contiguous(),
-                          Bt_rows.contiguous(), rhs_t.contiguous())   # (L, 2N, NFS)
+    if 2 * N <= FUSED_BLOCK_MAX:
+        C_t = solve_bvp_fused(Gt.contiguous(), decay_t.contiguous(),
+                              Bt_rows.contiguous(), rhs_t.contiguous())   # (L, 2N, NFS)
+    else:
+        C_t = solve_block_tridiag_lanes_cuda(
+            *assemble_bvp_blocks(Gt, decay_t, Bt_rows), rhs_t.contiguous())
 
     # ---- flux tables: quadrature contraction folded in lanes ----
     C0 = C_t.reshape(L, 2 * N, NF, S)[:, :, 0, :]                # (L, 2N, S)

@@ -3,8 +3,9 @@
 Counterpart of ``pythonic_disort_tpu/models/disort/types.py``.  The
 field names and shapes are the same, so the tests compare the two
 packages field by field.  In place of pytrees the containers are plain
-dataclasses of tensors; on the batched path every tensor field carries a
-leading batch axis ``S`` (columns x bands).
+dataclasses of tensors.  On the batched path every tensor field carries a
+leading batch axis ``S`` (columns x bands), as the shapes below show; on
+the single-column path (`solve.solve`) the same fields have no ``S`` axis.
 
 Shape conventions: ``L`` layers, ``N = nquad // 2`` streams per
 hemisphere, ``NF`` Fourier modes, ``Ns`` source-polynomial coefficients,
@@ -46,7 +47,8 @@ class DisortConfig:
 
 @dataclasses.dataclass
 class DisortProblem:
-    """Numeric inputs of a batch of solves (leading axis S on every tensor).
+    """Numeric inputs of a batch of solves (leading axis S on every tensor)
+    or of one solve (no S axis).
 
     ``bdrf_modes[s, m, i, j] = BDRF_m(mu_i, mu_j)`` and
     ``bdrf_modes_mu0[s, m, i] = BDRF_m(mu_i, mu0)`` are pre-evaluated on
@@ -73,14 +75,15 @@ class DisortProblem:
 
 @dataclasses.dataclass
 class DisortSolution:
-    """Precomputed spectral solution data of a batch of solves.
+    """Precomputed spectral solution data of a batch of solves, or of one
+    solve (no S axis; ``G`` (NF, L, 2N, 2N) and ``GC`` present).
 
     On the flux-only batched path ``G`` and ``GC`` are ``None``: the flux
     evaluator reads the per-layer ``fvec_*``/``fb_*``/``fi_*`` tables.
     """
 
     config: DisortConfig
-    G: Optional[torch.Tensor]     # always None on the batched path
+    G: Optional[torch.Tensor]     # None on the batched path
     K: torch.Tensor               # (S, NF, L, 2N) eigenvalues (-K+ | +K+)
     GC: Optional[torch.Tensor]    # (S, NF, L, 4N^2); None when only_flux
     B: torch.Tensor               # (S, NF, L, 2N) beam particular solution

@@ -1,4 +1,5 @@
-"""Block-tridiagonal BVP solve in lanes layout: the plain PyTorch version.
+"""Block-tridiagonal solve (block Thomas): plain PyTorch version and the
+padded interface.
 
 Counterpart of ``pythonic_disort_tpu/ops/blocktri.py``.  Regrouping the
 multi-layer boundary-value system in chunks of 2N rows makes it block
@@ -10,7 +11,13 @@ last: blocks (L, n, n, B), vectors (L, n, B).
 Each block elimination is Gauss-Jordan with per-lane partial pivoting:
 unpivoted elimination breaks down on strongly peaked phase functions
 (Stamnes case 4c has a near-singular leading minor in a boundary block).
-This module is the oracle of the fused CUDA kernel (`cuda_blocktri`).
+
+`solve_block_tridiag_lanes` is the plain version of both CUDA kernels of
+`cuda_blocktri` (the fused boundary-value solve of the batched path and
+the generic block-Thomas solve of the single-column path) and the CPU
+path of the tests.  `solve_block_tridiag` is the padded interface the
+single-column solve calls: it moves the batch into lanes and goes through
+`cuda_blocktri.solve_block_tridiag_lanes_cuda`.
 """
 
 from __future__ import annotations
@@ -78,3 +85,21 @@ def solve_block_tridiag_lanes(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
     for l in range(L - 2, -1, -1):
         xs.append(gs[l] - torch.einsum("ikb,kb->ib", Ws[l], xs[-1]))
     return torch.stack(xs[::-1])
+
+
+def solve_block_tridiag(lower, diag, upper, rhs) -> torch.Tensor:
+    """Solve a block-tridiagonal system; batched over the middle axes.
+
+    ``lower``, ``diag``, ``upper``: (L, *batch, n, n); ``rhs``:
+    (L, *batch, n).  Returns x (L, *batch, n).  The batch axes are
+    flattened into lanes for the solver and restored afterwards.
+    """
+    from .cuda_blocktri import solve_block_tridiag_lanes_cuda
+
+    L, n = diag.shape[0], diag.shape[-1]
+    batch_shape = diag.shape[1:-2]
+    tmat = lambda x: x.reshape(L, -1, n, n).permute(0, 2, 3, 1).contiguous()
+    xs = solve_block_tridiag_lanes_cuda(
+        tmat(lower), tmat(diag), tmat(upper),
+        rhs.reshape(L, -1, n).permute(0, 2, 1).contiguous())
+    return xs.permute(0, 2, 1).reshape((L,) + tuple(batch_shape) + (n,))

@@ -1,13 +1,21 @@
-"""The fused BVP solve: CUDA kernel ``csrc/bvp_fused.cu`` and its plain
-PyTorch version.
+"""The two block-Thomas CUDA kernels and their plain PyTorch versions.
 
-Counterpart of ``pythonic_disort_tpu/ops/pallas_blocktri.py::
-solve_bvp_fused_pallas``: the L-layer block-tridiagonal boundary-value
-system is assembled from the eigenvector blocks and decays inside the
-kernel and solved by block Thomas with partial pivoting.  The plain
-version assembles the blocks (`blocktri.assemble_bvp_blocks`) and runs
-the pivoted block-Thomas loop (`blocktri.solve_block_tridiag_lanes`).
-The solution is unique, so the two are compared directly.
+Counterpart of ``pythonic_disort_tpu/ops/pallas_blocktri.py``.
+
+`solve_bvp_fused` (``csrc/bvp_fused.cu``, for ``solve_bvp_fused_pallas``):
+the L-layer block-tridiagonal boundary-value system is assembled from the
+eigenvector blocks and decays inside the kernel and solved by block
+Thomas with partial pivoting; 2N <= 32.  Its plain version assembles the
+blocks (`blocktri.assemble_bvp_blocks`) and runs the pivoted block-Thomas
+loop (`blocktri.solve_block_tridiag_lanes`).
+
+`solve_block_tridiag_lanes_cuda` (``csrc/blocktri.cu``, for
+``solve_block_tridiag_lanes_pallas``): the same pivoted block Thomas on
+explicit dense lower/diag/upper blocks, n <= 64.  Its plain version is
+`blocktri.solve_block_tridiag_lanes`.
+
+The solution of either system is unique, so a kernel and its plain
+version are compared directly on x.
 """
 
 from __future__ import annotations
@@ -25,36 +33,45 @@ def solve_bvp_fused_plain(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     return solve_block_tridiag_lanes(*assemble_bvp_blocks(Gt, decay_t, bt_rows), rhs_t)
 
 
-_FN = {torch.float32: "bvp_fused_f32", torch.float64: "bvp_fused_f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+FUSED_BLOCK_MAX = 32    # largest block size 2N of csrc/bvp_fused.cu
+BLOCK_MAX = 64          # largest block size n of csrc/blocktri.cu
 
 
-def _kernel(dtype):
-    fn = getattr(_build.load("bvp_fused"), _FN[dtype])
+def _kernel(name, dtype):
+    """The C entry point ``<name>_f32`` / ``<name>_f64`` of ``csrc/<name>.cu``;
+    both sources take six pointers, three sizes and the stream."""
+    fn = getattr(_build.load(name), f"{name}_{_SUFFIX[dtype]}")
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(Gt, decay_t, bt_rows, rhs_t) -> None:
-    ops = (Gt, decay_t, bt_rows, rhs_t)
-    if any(x.device.type != "cuda" or x.device != Gt.device for x in ops):
-        raise ValueError("solve_bvp_fused: all operands must be CUDA tensors on one device")
-    if Gt.dtype not in _FN or any(x.dtype != Gt.dtype for x in ops):
-        raise TypeError(f"solve_bvp_fused: float32 or float64 operands expected, got {[x.dtype for x in ops]}")
-    if Gt.dim() != 4:
-        raise ValueError(f"solve_bvp_fused: Gt must be (L, 2N, 2N, B), got {tuple(Gt.shape)}")
-    L, n2, _, B = Gt.shape
-    N = n2 // 2
-    want = {"Gt": (L, n2, n2, B), "decay_t": (L, N, B), "bt_rows": (N, n2, B), "rhs_t": (L, n2, B)}
-    for name, x in zip(want, ops):
-        if tuple(x.shape) != want[name]:
-            raise ValueError(f"solve_bvp_fused: {name} must be {want[name]}, got {tuple(x.shape)}")
-    if n2 % 2 or not 2 <= n2 <= 32 or L < 1 or B < 1:
-        raise ValueError(f"solve_bvp_fused: the kernel takes even 2N <= 32, L >= 1, B >= 1; got {tuple(Gt.shape)}")
+def _check(name, operands: dict, want: dict) -> None:
+    """What both kernels ask of their operands (label -> tensor): CUDA
+    tensors on one device, one of float32/float64, the shapes ``want``,
+    contiguous, no gradient."""
+    ops = tuple(operands.values())
+    if any(x.device.type != "cuda" or x.device != ops[0].device for x in ops):
+        raise ValueError(f"{name}: all operands must be CUDA tensors on one device")
+    if ops[0].dtype not in _SUFFIX or any(x.dtype != ops[0].dtype for x in ops):
+        raise TypeError(f"{name}: float32 or float64 operands expected, got {[x.dtype for x in ops]}")
+    for label, x in operands.items():
+        if tuple(x.shape) != want[label]:
+            raise ValueError(f"{name}: {label} must be {want[label]}, got {tuple(x.shape)}")
     if not all(x.is_contiguous() for x in ops):
-        raise ValueError("solve_bvp_fused: contiguous operands expected")
+        raise ValueError(f"{name}: contiguous operands expected")
     if any(x.requires_grad for x in ops):
-        raise NotImplementedError("solve_bvp_fused: no gradient yet (ROADMAP queue 1, module 8)")
+        raise NotImplementedError(f"{name}: no gradient yet (ROADMAP queue 1, item 8)")
+
+
+def _launch(name, operands, scratch, x, sizes) -> torch.Tensor:
+    err = _kernel(name, x.dtype)(
+        *(t.data_ptr() for t in (*operands, scratch, x)), *sizes,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return x
 
 
 def solve_bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
@@ -66,22 +83,54 @@ def solve_bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     tensors launch the kernel (counted in ``solve_bvp_fused.launches``)
     or raise.
     """
-    if all(x.device.type == "cpu" for x in (Gt, decay_t, bt_rows, rhs_t)):
-        return solve_bvp_fused_plain(Gt, decay_t, bt_rows, rhs_t)
-    _check(Gt, decay_t, bt_rows, rhs_t)
+    ops = (Gt, decay_t, bt_rows, rhs_t)
+    if all(x.device.type == "cpu" for x in ops):
+        return solve_bvp_fused_plain(*ops)
+    if Gt.dim() != 4:
+        raise ValueError(f"solve_bvp_fused: Gt must be (L, 2N, 2N, B), got {tuple(Gt.shape)}")
     L, n2, _, B = Gt.shape
+    N = n2 // 2
+    _check("solve_bvp_fused", dict(Gt=Gt, decay_t=decay_t, bt_rows=bt_rows, rhs_t=rhs_t),
+           dict(Gt=(L, n2, n2, B), decay_t=(L, N, B), bt_rows=(N, n2, B), rhs_t=(L, n2, B)))
+    if n2 % 2 or not 2 <= n2 <= FUSED_BLOCK_MAX or L < 1 or B < 1:
+        raise ValueError(
+            f"solve_bvp_fused: the fused kernel takes even 2N <= {FUSED_BLOCK_MAX}, L >= 1, B >= 1 (larger blocks go "
+            f"through assemble_bvp_blocks and solve_block_tridiag_lanes_cuda); got {tuple(Gt.shape)}")
     # [H_l | g_l] stack written by the forward sweep, read by the backward
-    HG = torch.empty((L, n2, n2 // 2 + 1, B), dtype=Gt.dtype, device=Gt.device)
-    x = torch.empty_like(rhs_t)
-    err = _kernel(Gt.dtype)(
-        Gt.data_ptr(), decay_t.data_ptr(), bt_rows.data_ptr(), rhs_t.data_ptr(),
-        HG.data_ptr(), x.data_ptr(), L, n2, B,
-        torch.cuda.current_stream(Gt.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"bvp_fused kernel launch failed: CUDA error {err}")
+    HG = torch.empty((L, n2, N + 1, B), dtype=Gt.dtype, device=Gt.device)
+    x = _launch("bvp_fused", ops, HG, torch.empty_like(rhs_t), (L, n2, B))
     solve_bvp_fused.launches += 1
     return x
 
 
 solve_bvp_fused.launches = 0
+
+
+def solve_block_tridiag_lanes_cuda(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
+    """Block-Thomas solve on explicit blocks; returns x (L, n, B).
+
+    ``lower_t``, ``diag_t``, ``upper_t`` (L, n, n, B) general dense
+    blocks, ``rhs_t`` (L, n, B); ``lower_t[0]`` and ``upper_t[-1]`` are
+    ignored and may hold anything.  CPU tensors take
+    `blocktri.solve_block_tridiag_lanes`; CUDA tensors launch the kernel
+    (counted in ``solve_block_tridiag_lanes_cuda.launches``) or raise.
+    """
+    name = "solve_block_tridiag_lanes_cuda"
+    ops = (lower_t, diag_t, upper_t, rhs_t)
+    if all(x.device.type == "cpu" for x in ops):
+        return solve_block_tridiag_lanes(*ops)
+    if diag_t.dim() != 4 or diag_t.shape[1] != diag_t.shape[2]:
+        raise ValueError(f"{name}: diag_t must be (L, n, n, B), got {tuple(diag_t.shape)}")
+    L, n, _, B = diag_t.shape
+    _check(name, dict(lower_t=lower_t, diag_t=diag_t, upper_t=upper_t, rhs_t=rhs_t),
+           dict(lower_t=(L, n, n, B), diag_t=(L, n, n, B), upper_t=(L, n, n, B), rhs_t=(L, n, B)))
+    if not 1 <= n <= BLOCK_MAX or L < 1 or B < 1:
+        raise ValueError(f"{name}: the kernel takes n <= {BLOCK_MAX}, L >= 1, B >= 1; got {tuple(diag_t.shape)}")
+    # [W_l | g_l] stack written by the forward sweep, read by the backward
+    WG = torch.empty((L, n, n + 1, B), dtype=diag_t.dtype, device=diag_t.device)
+    x = _launch("blocktri", ops, WG, torch.empty_like(rhs_t), (L, n, B))
+    solve_block_tridiag_lanes_cuda.launches += 1
+    return x
+
+
+solve_block_tridiag_lanes_cuda.launches = 0

@@ -1,6 +1,7 @@
-"""Symmetrized discrete-ordinates eigensolver, lanes layout.
+"""Symmetrized discrete-ordinates eigensolver.
 
-Counterpart of ``pythonic_disort_tpu/ops/eig.py::disort_eigh_lanes``.
+Counterpart of ``pythonic_disort_tpu/ops/eig.py`` (``disort_eigh_lanes``
+for the batched solve, ``disort_eigh`` for the single-column solve).
 With ``c = diag(sqrt(w mu))`` and ``rho = diag(sqrt(w / mu))`` the two
 half-size operators become symmetric (Stamnes & Swanson 1981)::
 
@@ -9,7 +10,8 @@ half-size operators become symmetric (Stamnes & Swanson 1981)::
 and the eigen stage (`cuda_eig.eig_stage_lanes`) diagonalizes ``At Bt``
 through one Cholesky congruence.  This module builds At/Bt and applies
 the diagonal ``c`` scalings that take the stage's outputs back to the
-physical eigenbasis.
+physical eigenbasis.  `disort_eigh` is the padded (..., N, N) interface:
+it flattens the leading axes into lanes around `disort_eigh_lanes`.
 """
 
 from __future__ import annotations
@@ -42,3 +44,18 @@ def disort_eigh_lanes(Dp_l: torch.Tensor, Dm_l: torch.Tensor, mu: torch.Tensor,
     P = Pr * c[None, :, None]
     Q = Qr * c[None, :, None]
     return K, X, Y, P, Q
+
+
+def disort_eigh(Dp: torch.Tensor, Dm: torch.Tensor, mu: torch.Tensor, w: torch.Tensor):
+    """`disort_eigh_lanes` on padded operands.
+
+    ``Dp``, ``Dm``: (..., N, N).  Returns ``K (..., N)`` and
+    ``X, Y, P, Q (..., N, N)``; the order of the eigen columns is
+    unspecified (the boundary-value coefficients adapt to it).
+    """
+    N = Dp.shape[-1]
+    batch_shape = tuple(Dp.shape[:-2])
+    to_lanes = lambda x: x.reshape(-1, N, N).permute(1, 2, 0)
+    K, *mats = disort_eigh_lanes(to_lanes(Dp), to_lanes(Dm), mu, w)
+    unl = lambda x: x.permute(2, 0, 1).reshape(batch_shape + (N, N))
+    return (K.T.reshape(batch_shape + (N,)), *(unl(x) for x in mats))

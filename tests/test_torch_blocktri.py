@@ -1,13 +1,17 @@
-"""The port's BVP solve held against the JAX package (CPU, float64).
+"""The port's block-tridiagonal solves held against the JAX package (CPU,
+float64).
 
-Operands come from numpy with a seed: well-conditioned eigenvector blocks
-G (identity plus a small random part), decays in (0.05, 0.95), bottom
-boundary rows and right-hand sides.  The JAX side assembles the blocks
+Operands come from numpy with a seed.  For the fused boundary-value
+solve: well-conditioned eigenvector blocks G (identity plus a small
+random part), decays in (0.05, 0.95), bottom boundary rows and right-hand
+sides; the JAX side assembles the blocks
 (``ops.blocktri.assemble_bvp_blocks``) and runs its lanes block-Thomas
 (``solve_block_tridiag_lanes``, the plain jnp path on the CPU); the port
 runs ``ops.cuda_blocktri.solve_bvp_fused``, which on CPU tensors is its
-plain assemble + pivoted block-Thomas.  The solution is unique, so x is
-compared directly.
+plain assemble + pivoted block-Thomas.  For the generic solve: dense
+blocks with no structural zeros, through the lanes and the padded
+interfaces of both packages.  The solution is unique, so x is compared
+directly.
 """
 
 import numpy as np
@@ -88,3 +92,88 @@ def test_bvp_wrapper_refuses_non_cuda_non_cpu_tensors():
     ops = [torch.empty(s, device="meta") for s in ((2, 4, 4, 8), (2, 2, 8), (2, 4, 8), (2, 4, 8))]
     with pytest.raises(ValueError, match="CUDA"):
         cuda_blocktri.solve_bvp_fused(*ops)
+
+
+def _dense_blocks(L, n, B, seed, permute=False):
+    """General dense blocks with a dominant diagonal, rhs, and NaN in the
+    two blocks the convention ignores."""
+    rng = np.random.default_rng(seed)
+    lower, upper = (0.5 * rng.standard_normal((L, n, n, B)) / np.sqrt(n) for _ in range(2))
+    diag = 3 * np.eye(n)[None, :, :, None] + rng.standard_normal((L, n, n, B)) / np.sqrt(n)
+    rhs = rng.standard_normal((L, n, B))
+    if permute:
+        # one row permutation of every block row: x stays, the leading
+        # entries stop being the largest of their columns
+        perm = np.roll(np.arange(n), 1)
+        lower, diag, upper, rhs = lower[:, perm], diag[:, perm], upper[:, perm], rhs[:, perm]
+    lower[0], upper[-1] = np.nan, np.nan
+    return lower, diag, upper, rhs
+
+
+def _dense_reference(ops):
+    """x by numpy's dense solve of each lane's assembled system."""
+    lower, diag, upper, rhs = ops
+    L, n, _, B = diag.shape
+    x = np.empty((L, n, B))
+    for b in range(B):
+        A = np.zeros((L * n, L * n))
+        for l in range(L):
+            A[l * n:(l + 1) * n, l * n:(l + 1) * n] = diag[l, :, :, b]
+            if l > 0:
+                A[l * n:(l + 1) * n, (l - 1) * n:l * n] = lower[l, :, :, b]
+            if l < L - 1:
+                A[l * n:(l + 1) * n, (l + 1) * n:(l + 2) * n] = upper[l, :, :, b]
+        x[..., b] = np.linalg.solve(A, rhs[..., b].reshape(-1)).reshape(L, n)
+    return x
+
+
+@pytest.mark.parametrize("L,n,B", [(1, 4, 5), (2, 4, 1), (6, 4, 5), (1, 8, 1), (2, 8, 5), (6, 8, 1),
+                                   (1, 48, 1), (2, 48, 5), (6, 48, 1)])
+def test_generic_solve_matches_jax(L, n, B):
+    ops = _dense_blocks(L, n, B, seed=100 * L + n + B)
+    x_ref = np.asarray(jbt.solve_block_tridiag_lanes(*(jnp.asarray(o) for o in ops)))
+    assert np.isfinite(x_ref).all()
+    x = cuda_blocktri.solve_block_tridiag_lanes_cuda(*(torch.as_tensor(o) for o in ops)).numpy()
+    # the same pivoted elimination in f64 on a well-conditioned system:
+    # agreement to roundoff, 1e-10 relative leaves a wide margin
+    np.testing.assert_allclose(x, x_ref, rtol=1e-10, atol=1e-12 * np.abs(x_ref).max())
+    np.testing.assert_allclose(x, _dense_reference(ops), rtol=1e-9, atol=1e-11 * np.abs(x_ref).max())
+
+
+@pytest.mark.parametrize("L,n,batch", [(1, 4, (3,)), (4, 6, (2, 3)), (3, 8, ())])
+def test_padded_solve_matches_jax(L, n, batch):
+    B = int(np.prod(batch, dtype=int))
+    lanes = _dense_blocks(L, n, B, seed=7 * L + n)
+    # (L, n, n, B) -> (L, *batch, n, n)
+    mat = lambda x: np.moveaxis(x, 3, 1).reshape((L,) + batch + (n, n))
+    padded = [mat(o) for o in lanes[:3]] + [np.moveaxis(lanes[3], 2, 1).reshape((L,) + batch + (n,))]
+    x_ref = np.asarray(jbt.solve_block_tridiag(*(jnp.asarray(o) for o in padded)))
+    x = blocktri.solve_block_tridiag(*(torch.as_tensor(o) for o in padded)).numpy()
+    assert x.shape == (L,) + batch + (n,)
+    np.testing.assert_allclose(x, x_ref, rtol=1e-10, atol=1e-12 * np.abs(x_ref).max())
+
+
+def test_generic_solve_pivots():
+    """Rows permuted so that every leading entry is small: the solve has to
+    exchange rows, and x is what the unpermuted system gives."""
+    plain = _dense_blocks(3, 6, 4, seed=3)
+    rolled = _dense_blocks(3, 6, 4, seed=3, permute=True)
+    assert np.abs(rolled[1][:, 0, 0]).max() < 1.0 < np.abs(plain[1][:, 0, 0]).min()
+    x = cuda_blocktri.solve_block_tridiag_lanes_cuda(*(torch.as_tensor(o) for o in rolled)).numpy()
+    x_ref = np.asarray(jbt.solve_block_tridiag_lanes(*(jnp.asarray(o) for o in rolled)))
+    np.testing.assert_allclose(x, x_ref, rtol=1e-10, atol=1e-12 * np.abs(x_ref).max())
+    np.testing.assert_allclose(x, _dense_reference(plain), rtol=1e-9, atol=1e-11 * np.abs(x_ref).max())
+
+
+def test_generic_wrapper_cpu_takes_plain_and_counts_no_launch():
+    ops = [torch.as_tensor(o) for o in _dense_blocks(3, 4, 2, seed=5)]
+    before = cuda_blocktri.solve_block_tridiag_lanes_cuda.launches
+    x = cuda_blocktri.solve_block_tridiag_lanes_cuda(*ops)
+    assert cuda_blocktri.solve_block_tridiag_lanes_cuda.launches == before
+    torch.testing.assert_close(x, blocktri.solve_block_tridiag_lanes(*ops), rtol=0, atol=0)
+
+
+def test_generic_wrapper_refuses_non_cuda_non_cpu_tensors():
+    ops = [torch.empty(s, device="meta") for s in ((2, 4, 4, 8),) * 3 + ((2, 4, 8),)]
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_blocktri.solve_block_tridiag_lanes_cuda(*ops)

@@ -15,9 +15,10 @@ import torch
 
 import jax.numpy as jnp
 
+from pythonic_disort_tpu.ops.eig import disort_eigh as jax_eigh
 from pythonic_disort_tpu.ops.eig import disort_eigh_lanes as jax_eigh_lanes
 from pythonic_disort_torch.ops import cuda_eig
-from pythonic_disort_torch.ops.eig import disort_eigh_lanes
+from pythonic_disort_torch.ops.eig import disort_eigh, disort_eigh_lanes
 from pythonic_disort_torch.ops.quadrature import double_gauss
 
 
@@ -81,6 +82,25 @@ def test_eig_stage_matches_jax(n, B):
     for name, res in (("port", _residuals(Dp, Dm, mu, w, *out)),
                       ("jax", _residuals(Dp, Dm, mu, w, *ref))):
         assert max(res) < 1e-10, f"{name}: residuals {res}"
+
+
+@pytest.mark.parametrize("n,batch", [(4, (3, 5)), (8, (6,)), (2, ())])
+def test_padded_eigh_matches_jax(n, batch):
+    """`disort_eigh` on (*batch, N, N) operands: the same order-free
+    readings as the lanes interface, per batch element."""
+    B = int(np.prod(batch, dtype=int))
+    Dp, Dm, mu, w = _kernels(n, B, seed=20 + n)
+    pad = lambda x: np.moveaxis(x, 2, 0).reshape(batch + (n, n))
+    ref = [np.asarray(x) for x in jax_eigh(
+        jnp.asarray(pad(Dp)), jnp.asarray(pad(Dm)), jnp.asarray(mu), jnp.asarray(w))]
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64)
+    out = [x.numpy() for x in disort_eigh(t(pad(Dp)), t(pad(Dm)), t(mu), t(w))]
+    assert out[0].shape == batch + (n,) and all(x.shape == batch + (n, n) for x in out[1:])
+    # sorted K to roundoff (see test_eig_stage_matches_jax)
+    np.testing.assert_allclose(np.sort(out[0], axis=-1), np.sort(ref[0], axis=-1), rtol=1e-10, atol=0)
+    lanes = lambda x: np.moveaxis(x.reshape((B,) + x.shape[len(batch):]), 0, -1)
+    res = _residuals(Dp, Dm, mu, w, *(lanes(x) for x in out))
+    assert max(res) < 1e-10, f"residuals {res}"
 
 
 def test_eig_stage_plain_matches_lanes_definition():

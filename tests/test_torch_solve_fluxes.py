@@ -88,6 +88,14 @@ def test_solve_fluxes_matches_jax_bench_shape():
     assert_fluxes_match(problem, tau)
 
 
+def test_solve_fluxes_matches_jax_nquad48():
+    """NQuad = 48: more streams than the fused boundary-value kernel holds,
+    so the batched solve assembles the blocks and takes the generic
+    block-Thomas solve (on CPU tensors, the plain version of either)."""
+    problem, tau = _problem(3, 1, True, False, False, True, True, S=2, nquad=48, seed=3)
+    assert_fluxes_match(problem, tau)
+
+
 def test_solution_fields_match_jax():
     """Fields that do not depend on the eigen column order."""
     from pythonic_disort_tpu.models.disort.batch_solve import solve_batched as jax_solve_batched
