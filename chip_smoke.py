@@ -13,7 +13,12 @@ solves, and drives both paths of the port:
 - the single-column ``pydisort`` in float32: the Stamnes goldens of
   ``tests/data/stamnes`` at the reference thresholds, a 64-layer column at
   NQuad=32 with 32 Fourier modes against the port's float64 CPU result,
-  and a batched NQuad=48 call, which takes the generic block-Thomas kernel.
+  and a batched NQuad=48 call, which takes the generic block-Thomas kernel;
+- first-order gradients: d loss / d omega through ``solve_fluxes`` at the
+  bench configuration and through ``solve`` and ``eval.flux_up`` on the
+  64-layer column, which take the Jacobi kernel as their eigen stage and
+  the block-Thomas kernel for the transposed solve, against the port's
+  float64 CPU gradient, timed and traced.
 
 Every failed check raises, so the exit code is nonzero.  Its last two
 lines are a JSON line of per-kernel numbers and ``{"ok": true, "device":
@@ -62,6 +67,12 @@ EIG_TOL = {
     "float32": dict(k_rel=5e-6, r_eig=5e-7, r_y=1e-4, r_p=1e-4, r_q=1e-4),
     "float64": dict(k_rel=1e-10, r_eig=1e-10, r_y=1e-10, r_p=1e-9, r_q=1e-9),
 }
+# The float32 gradient's bound per row, 2e-3 x max|g_ref|, grows by
+# (POLE / d)^2 on a row whose distance d to the beam pole (see
+# `beam_pole_distance`) is below POLE: the conditioning of the particular
+# solution there, which the plain versions in float32 share.  The growth
+# stops at POLE_CAP x max|g_ref|, reached at d = POLE / sqrt(5).
+POLE, POLE_CAP = 1e-3, 1e-2
 EIG_READINGS = {
     "k_rel": "sorted K, relative to the lane's largest K,",
     "r_eig": "eigen residual |At Bt V - V K^2|",
@@ -290,6 +301,15 @@ def bvp_flops(L, N):
     return (L - 1) * corr + L * gj + (L - 1) * back
 
 
+def jacobi_flops(n, sweeps):
+    """Operations the two-sided Jacobi needs per lane: per sweep, for each
+    of the n(n-1)/2 pairs, the pivot (about 20), the rotation of one
+    triangle of the symmetric A (two of its rows, 6n) and of two rows of V
+    (6n).  The kernel's second triangle and re-symmetrization are not
+    counted: symmetric storage would not do them."""
+    return sweeps * (6 * n * n * (n - 1) + 10 * n * (n - 1))
+
+
 def blocktri_flops(L, n):
     """Operations of the generic block-Thomas solve per lane, as the
     algorithm needs them: the layer correction [D | r] - Low [W | g]
@@ -437,6 +457,68 @@ def blocktri_checks(ops, label, fused_x=None):
     return err, rel
 
 
+def congruence(At, Bt):
+    """M = L^T (-At) L with L = chol(-Bt), lanes (n, n, B): what the eigen
+    stage's gradient route diagonalizes with the Jacobi kernel."""
+    import torch
+
+    Lc = torch.linalg.cholesky(-Bt.permute(2, 0, 1))
+    return (Lc.mT @ (-At.permute(2, 0, 1)) @ Lc).permute(1, 2, 0).contiguous()
+
+
+def jacobi_checks(At, label, more_sweeps=0, keys=None):
+    """The Jacobi kernel, ``more_sweeps`` past its default count, against
+    its plain version in float64 on the same matrices, order-free: sorted
+    w, per-lane |V^T V - I| and per-lane |V diag(w) V^T - A| (``keys``,
+    default all, held to `tools.check_jacobi.LIMITS`)."""
+    import torch
+    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes
+    from pythonic_disort_torch.ops.jacobi import default_sweeps, jacobi_eigh_lanes_plain
+    from pythonic_disort_torch.tools.check_jacobi import LIMITS, check_readings, readings
+
+    n = At.shape[0]
+    w, V = jacobi_eigh_lanes(At, default_sweeps(n, At.dtype) + more_sweeps)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(w).all() and torch.isfinite(V).all()), f"{label}: outputs finite")
+    w64 = jacobi_eigh_lanes_plain(At.double(), default_sweeps(n, torch.float64))[0].T.sort(dim=1).values
+    r = readings(At, w, V, w64)
+    keys = keys or tuple(LIMITS[At.dtype])
+    check(check_readings(label, r, At.dtype, log=log, keys=keys) == 0,
+          f"{label}: {', '.join(keys)} within {LIMITS[At.dtype]}")
+    return r
+
+
+def bvp_gradient_route_check(ops, label):
+    """Gradients of sum(x * r), r fixed and random, through the fused BVP
+    kernel's Function and through the assembled blocks and the generic
+    kernel's Function: within rtol 2e-3 and 1e-5 x max|g| (the float32
+    bound of tests_tpu/test_tpu_production.py for the same comparison)."""
+    import torch
+    from pythonic_disort_torch.ops.blocktri import assemble_bvp_blocks
+    from pythonic_disort_torch.ops.cuda_blocktri import solve_block_tridiag_lanes_cuda, solve_bvp_fused
+
+    r = torch.randn(ops[3].shape, generator=torch.Generator(device=ops[3].device).manual_seed(0),
+                    device=ops[3].device, dtype=ops[3].dtype)
+
+    def grads(route):
+        leaves = [o.detach().clone().requires_grad_() for o in ops]
+        return torch.autograd.grad((route(*leaves) * r).sum(), leaves)
+
+    fused = grads(solve_bvp_fused)
+    assembled = grads(lambda G, d, b, rhs: solve_block_tridiag_lanes_cuda(*assemble_bvp_blocks(G, d, b), rhs))
+    worst = 0.0
+    for name, a, b in zip(("Gt", "decay_t", "bt_rows", "rhs_t"), fused, assembled):
+        a, b = a.double(), b.double()
+        scale = b.abs().max().item()
+        err = (a - b).abs()
+        excess = (err - 2e-3 * b.abs()).max().item() / scale
+        worst = max(worst, err.max().item() / scale)
+        log(f"  {label}: d/d {name}: max |fused - assembled| / max|g| = {err.max().item() / scale:.3e}")
+        check(bool(torch.isfinite(a).all()) and excess <= 1e-5,
+              f"{label}: d/d {name} agrees within rtol 2e-3, atol 1e-5 x max|g|")
+    return worst
+
+
 # ------------------------------------------------------------------ phases
 def phase_device():
     import torch
@@ -478,7 +560,11 @@ def phase_kernels(main_ops):
         solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain)
     from pythonic_disort_torch.ops.cuda_eig import (
         eig_stage_lanes, eig_stage_lanes_plain, jacobi_sweeps)
+    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes
+    from pythonic_disort_torch.ops.jacobi import _round_robin_schedule, default_sweeps, jacobi_eigh_lanes_plain
     from pythonic_disort_torch.tools.check_blocktri import random_blocks
+    from pythonic_disort_torch.tools.check_jacobi import (
+        DEFAULT_SWEEP_READINGS, constant_diagonal_matrices, scan_matrices, tied_matrices)
 
     log("phase 3: kernels against their plain versions")
     At, Bt = main_ops["eig"]
@@ -527,13 +613,50 @@ def phase_kernels(main_ops):
         blocktri_checks(random_blocks(L_, n_, B_, 100 * L_ + n_, dt),
                         f"blocktri L={L_} n={n_} B={B_} {str(dt).removeprefix('torch.')} (dense, NaN edge blocks)")
 
+    # the two-sided Jacobi kernel: on the congruence M of the main-path
+    # operands (what the eigen stage's gradient route diagonalizes), n = 24
+    # ragged, float64, diagonals tied in pairs or constant, and the TPU
+    # kernel's 131072-lane reconstruction scan
+    M = congruence(At, Bt)
+    jac = jacobi_checks(M, f"jacobi n={M.shape[0]} B={M.shape[2]} f32 (main-path congruence M)")
+    jacobi_checks(congruence(*phase_function_operands(24, 3000, 8, torch.float32, "cuda")),
+                  "jacobi n=24 B=3000 f32 (ragged)")
+    # the congruence in float64 too: a float32 M is symmetric only to float32
+    # roundoff, which the reconstruction reading would measure
+    jacobi_checks(congruence(At[..., :4096].double(), Bt[..., :4096].double()), "jacobi n=16 B=4096 f64")
+    tied = tied_matrices(16, 4096, 3, torch.float32)
+    p0, q0 = _round_robin_schedule(16)
+    diag = tied.diagonal(dim1=0, dim2=1)                    # (B, n)
+    met = int((diag[:, p0[0]] == diag[:, q0[0]]).any(dim=1).sum())
+    log(f"  tied diagonals: {met} of {tied.shape[2]} lanes meet a tied pair in their first round")
+    check(met > 0, "the tied batch exercises the rotation of a tied pair")
+    jacobi_checks(tied, "jacobi n=16 B=4096 f32 (diagonals tied in pairs)")
+    # every pair of the first sweep tied: the TPU kernel's skip would
+    # return the constant diagonal as the eigenvalues.  Held at the default
+    # sweep count on w and orthogonality, one sweep later on every reading
+    # (`tools.check_jacobi.DEFAULT_SWEEP_READINGS`)
+    for n_, B_, dt in ((2, 4096, torch.float32), (4, 4096, torch.float32), (16, 4096, torch.float32),
+                       (16, 1024, torch.float64)):
+        dense = constant_diagonal_matrices(n_, B_, n_ + 1000 * (dt == torch.float64), dt)
+        label = f"jacobi n={n_} B={B_} {str(dt).removeprefix('torch.')} (constant diagonal)"
+        jacobi_checks(dense, label, keys=DEFAULT_SWEEP_READINGS)
+        jacobi_checks(dense, f"{label}, one sweep more", more_sweeps=1)
+    scan = jacobi_checks(scan_matrices(16, 131072, 0, torch.float32), "jacobi n=16 B=131072 f32 (scan)")
+    n_bad = int((scan["lanes_abs"] > 1e-3).sum())
+    log(f"  scan: {n_bad} lanes with max |V diag(w) V^T - A| above 1e-3, largest {scan['recon_abs']:.3e}")
+    check(n_bad == 0 and scan["recon_abs"] < 1e-4, "scan: no lane above 1e-3, the largest under 1e-4")
+
+    bvp_grad_err = bvp_gradient_route_check(ops, f"bvp gradient L={ops[0].shape[0]} 2N={ops[0].shape[1]} "
+                                                 f"B={ops[0].shape[3]} f32 (main-path operands)")
+
     log("timing kernels at the main-path shapes (CUDA events)")
     n, B = At.shape[0], At.shape[2]
     eig_ms = cuda_ms(lambda: eig_stage_lanes(At, Bt), 20)
     eig_plain_ms = cuda_ms(lambda: in_chunks(eig_stage_lanes_plain, At, Bt), 3)
-    Lc = torch.linalg.cholesky(-Bt.permute(2, 0, 1))
-    M = (Lc.transpose(-1, -2) @ (-At.permute(2, 0, 1)) @ Lc).permute(1, 2, 0)
     eigh_ms = cuda_ms(lambda: in_chunks(lambda m: torch.linalg.eigh(m.permute(2, 0, 1)), M), 3)
+    jac_sweeps = default_sweeps(n, M.dtype)
+    jac_ms = cuda_ms(lambda: jacobi_eigh_lanes(M, jac_sweeps), 20)
+    jac_plain_ms = cuda_ms(lambda: jacobi_eigh_lanes_plain(M, jac_sweeps), 3)
     esz = At.element_size()
     eig_bound, eig_by = bound_ms((2 * n * n + 4 * n * n + n) * B * esz,
                                  eig_flops(n, jacobi_sweeps(At.dtype)) * B, "float32")
@@ -542,8 +665,12 @@ def phase_kernels(main_ops):
     bvp_plain_ms = cuda_ms(lambda: solve_bvp_fused_plain(*ops), 2)
     bvp_bytes = sum(o.numel() for o in ops) * esz + ops[3].numel() * esz
     bvp_bound, bvp_by = bound_ms(bvp_bytes, bvp_flops(L, n2 // 2) * Bb, "float32")
+    jac_bound, jac_by = bound_ms((2 * n * n + n) * B * esz, jacobi_flops(n, jac_sweeps) * B, "float32")
     log(f"  eig_stage: {eig_ms:.4f} ms (plain {eig_plain_ms:.3f} ms, torch.linalg.eigh on M "
         f"{eigh_ms:.3f} ms, bound {eig_bound:.4f} ms by {eig_by})")
+    log(f"  jacobi_eigh: {jac_ms:.4f} ms (plain {jac_plain_ms:.3f} ms, torch.linalg.eigh on the same M "
+        f"{eigh_ms:.3f} ms, bound {jac_bound:.4f} ms by {jac_by}: {(2 * n * n + n) * B * esz / 1e9:.3f} GB, "
+        f"{jacobi_flops(n, jac_sweeps) * B:.3e} FLOP)")
     log(f"  bvp_fused: {bvp_ms:.4f} ms (plain {bvp_plain_ms:.3f} ms, bound {bvp_bound:.4f} ms by {bvp_by})")
 
     def time_blocktri(o, what, reps, plain_reps):
@@ -579,21 +706,31 @@ def phase_kernels(main_ops):
              replaces="pythonic_disort_tpu/ops/pallas_blocktri.py:382",
              replaces_function="solve_bvp_fused_pallas",
              launches=None, max_abs_err=bvp_abs, max_err=bvp_rel, ms=bvp_ms, plain_ms=bvp_plain_ms,
-             bound_ms=bvp_bound, bound_by=bvp_by, library_ms=None, library_call=None),
+             bound_ms=bvp_bound, bound_by=bvp_by, library_ms=None, library_call=None,
+             gradient_route_max_err=bvp_grad_err),
         dict(name="blocktri", route="cuda", source="pythonic_disort_torch/csrc/blocktri.cu",
              replaces="pythonic_disort_tpu/ops/pallas_blocktri.py:553",
              replaces_function="solve_block_tridiag_lanes_pallas",
              launches=None, max_abs_err=bt_abs, max_err=bt_rel, ms=bt_main_t["ms"],
              plain_ms=bt_main_t["plain_ms"], bound_ms=bt_main_t["bound_ms"], bound_by=bt_main_t["bound_by"],
              library_ms=None, library_call=None, timed_at=bt_main_t["shape"], other_shapes=bt_others),
+        dict(name="jacobi_eigh", route="cuda", source="pythonic_disort_torch/csrc/jacobi_eigh.cu",
+             replaces="pythonic_disort_tpu/ops/pallas_jacobi.py:244",
+             replaces_function="jacobi_eigh_lanes_pallas",
+             launches=None, max_abs_err=jac["w_abs"], max_err=jac["w"], ms=jac_ms, plain_ms=jac_plain_ms,
+             bound_ms=jac_bound, bound_by=jac_by, library_ms=eigh_ms,
+             library_call=f"torch.linalg.eigh on the same (B, 16, 16) M in chunks of {EIGH_CHUNK}",
+             timed_at=f"n={n} B={B} float32, the main-path congruence M"),
     ]
 
 
 def wrappers():
     from pythonic_disort_torch.ops.cuda_blocktri import solve_block_tridiag_lanes_cuda, solve_bvp_fused
     from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes
+    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes
 
-    return {"eig_stage": eig_stage_lanes, "bvp_fused": solve_bvp_fused, "blocktri": solve_block_tridiag_lanes_cuda}
+    return {"eig_stage": eig_stage_lanes, "bvp_fused": solve_bvp_fused, "blocktri": solve_block_tridiag_lanes_cuda,
+            "jacobi_eigh": jacobi_eigh_lanes}
 
 
 def reset_launches():
@@ -619,7 +756,8 @@ def phase_main_path(arrs, problem, tau, kernels):
         k["launches"], k["launches_on"] = launches[k["name"]], "batched flux path, one chunk"
     check(launches["eig_stage"] > 0 and launches["bvp_fused"] > 0,
           "the eigen and fused BVP kernels launched on the main path")
-    check(launches["blocktri"] == 0, "the NQuad=32 chunk does not take the generic block-Thomas kernel")
+    check(launches["blocktri"] == 0 and launches["jacobi_eigh"] == 0,
+          "the forward-only NQuad=32 chunk takes neither the generic block-Thomas nor the Jacobi kernel")
     check(all(torch.isfinite(x).all().item() for x in out), "fluxes finite")
     check(all(x.shape == (CHUNK_COLS * NBANDS, NLAYERS) for x in out), "fluxes have shape (1024, 64)")
 
@@ -752,7 +890,8 @@ def phase_single_column(kernels):
     kernels[0]["launches_single_column"] = launches["eig_stage"]
     check(launches["eig_stage"] > 0 and launches["blocktri"] > 0,
           "the eigen and block-Thomas kernels launched on the single-column path")
-    check(launches["bvp_fused"] == 0, "the single-column path does not take the fused BVP kernel")
+    check(launches["bvp_fused"] == 0 and launches["jacobi_eigh"] == 0,
+          "the forward-only single-column path takes neither the fused BVP nor the Jacobi kernel")
     _, fu64, fd64, u064, u64 = pydisort(**kwargs, dtype=torch.float64, device="cpu")
     within(fu64(tau), fu(tau), "flux_up")
     for lbl, a, b in zip(("flux_down diffuse", "flux_down direct"), fd64(tau), fd(tau)):
@@ -803,6 +942,159 @@ def phase_single_column(kernels):
                 min(times[1:]))
 
 
+def batched_gradient(arrs, dtype, device):
+    """One gradient step of the batched path as a function: d loss / d omega
+    with loss = sum(fup^2) + sum(fdn * fdir) (the loss of
+    tests_tpu/test_tpu_production.py's gradient test), omega a leaf that
+    make_batched_problem keeps as the problem's own."""
+    import torch
+    from pythonic_disort_torch import solve_fluxes
+
+    omega = torch.tensor(arrs["omega"], dtype=dtype, device=device, requires_grad=True)
+    problem, tau = make_problem(dict(arrs, omega=omega), dtype, device)
+
+    def step():
+        fup, fdn, fdir = solve_fluxes(problem, tau)
+        return torch.autograd.grad((fup**2).sum() + (fdn * fdir).sum(), omega)[0]
+
+    return step
+
+
+def column_gradient(dtype, device):
+    """d sum(flux_up) / d omega (64,) of the 64-layer column through
+    build_problem, solve and eval.flux_up."""
+    import torch
+    import pythonic_disort_torch as pt
+    from pythonic_disort_torch.models.disort import eval as ev
+
+    kwargs = column_kwargs()
+    _, prob = pt.build_problem(**kwargs, dtype=dtype, device=device)
+    prob.omega_arr = prob.omega_arr.clone().requires_grad_()
+    tau = torch.linspace(0.0, float(kwargs["tau_arr"][-1]), 8, dtype=dtype, device=device)
+    flux_up = ev.flux_up(pt.solve(prob), tau)
+    return torch.autograd.grad(flux_up.sum(), prob.omega_arr)[0]
+
+
+def within_grad(g, g_ref, bound, label):
+    """|g - g_ref| < bound x max|g_ref|, on the CPU in float64."""
+    import torch
+
+    scale = g_ref.abs().max().item()
+    err = (g.double().cpu() - g_ref).abs().max().item()
+    log(f"  {label}: max |g - g_ref| = {err:.3e}, {err / scale:.3e} of max|g_ref| = {scale:.3e} (bound {bound:g})")
+    check(bool(torch.isfinite(g).all()) and err < bound * scale, f"{label} within {bound:g} x max|g_ref|")
+
+
+def beam_pole_distance(arrs):
+    """Per row, min |K mu0 - 1| over its layers and eigenvalues K (float64,
+    CPU).  The beam's particular solution divides by 1/mu0 - K: near that
+    pole the solution is a difference of large terms, and its derivative
+    divides by the square of the distance, so a float32 gradient loses
+    about (1/distance)^2 x 6e-8 of its scale there, whatever computes it."""
+    import torch
+    from pythonic_disort_torch.models.disort.batch_solve import solve_batched
+
+    problem, _ = make_problem(arrs, torch.float64, "cpu")
+    K = solve_batched(problem).K[:, 0, :, NQUAD // 2:]                  # (S, L, N), K > 0
+    mu0 = torch.as_tensor(arrs["mu0"], dtype=torch.float64)
+    return (K * mu0[:, None, None] - 1).abs().amin(dim=(1, 2))
+
+
+def phase_gradient(arrs, kernels, chunk_ms):
+    """First-order gradients on the card: the batched path at the bench
+    configuration and the 64-layer column, each against float64 on the CPU."""
+    import torch
+
+    log(f"phase 6: gradient path, d loss / d omega, {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}, "
+        f"NQuad={NQUAD}, f32, cuda")
+    step = batched_gradient(arrs, torch.float32, "cuda")
+    reset_launches()
+    g = step()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"  launches in one gradient step: {launches}")
+    check(launches["jacobi_eigh"] >= 1 and launches["bvp_fused"] == 1 and launches["blocktri"] >= 1
+          and launches["eig_stage"] == 0,
+          "one gradient step takes the Jacobi kernel, the fused BVP kernel once, the block-Thomas kernel "
+          "for the transposed solve, and not the forward-only eigen kernel")
+    by_name = {k["name"]: k for k in kernels}
+    by_name["jacobi_eigh"]["launches"] = launches["jacobi_eigh"]
+    by_name["jacobi_eigh"]["launches_on"] = "batched gradient path, one step (forward and backward)"
+    for name in ("bvp_fused", "blocktri"):
+        by_name[name]["launches_gradient_step"] = launches[name]
+    check(g.shape == (CHUNK_COLS * NBANDS, NLAYERS), "d loss / d omega has shape (1024, 64)")
+
+    nref = REF_COLS * NBANDS
+    t0 = time.perf_counter()
+    g_ref = batched_gradient(rows(arrs, nref), torch.float64, "cpu")()
+    log(f"  float64 CPU gradient ({nref} solves) in {time.perf_counter() - t0:.1f} s")
+    within_grad(batched_gradient(rows(arrs, nref), torch.float64, "cuda")(), g_ref, 1e-8,
+                "float64 card gradient (every kernel in float64)")
+    scale = g_ref.abs().max().item()
+    # float32, per row: 2e-3 x max|g_ref|, grown by the beam pole's
+    # conditioning on the rows near it up to POLE_CAP x max|g_ref|; the
+    # plain versions in float32 on the CPU are read beside it
+    dist = beam_pole_distance(rows(arrs, nref))
+    near = dist < POLE
+    bound = torch.clamp(2e-3 * scale * (POLE / dist) ** 2, min=2e-3 * scale, max=POLE_CAP * scale)
+    t0 = time.perf_counter()
+    g_plain = batched_gradient(rows(arrs, nref), torch.float32, "cpu")().double()
+    log(f"  float32 CPU gradient (plain versions, {nref} solves) in {time.perf_counter() - t0:.1f} s")
+    err = (g[:nref].double().cpu() - g_ref).abs().amax(dim=1)
+    err_plain = (g_plain - g_ref).abs().amax(dim=1)
+    k = int(dist.argmin())
+    log(f"  {int(near.sum())} of {nref} rows have an eigenvalue K with |K mu0 - 1| < {POLE:g}, "
+        f"{int((bound >= POLE_CAP * scale).sum())} of them at the cap; the largest row bound "
+        f"{bound.max().item() / scale:.3e} of max|g_ref|; on the row nearest the pole (d = {dist[k].item():.3e}) "
+        f"bound {bound[k].item() / scale:.3e}, card {err[k].item() / scale:.3e}, "
+        f"CPU plain versions {err_plain[k].item() / scale:.3e} of max|g_ref|")
+    j = int(err.argmax())
+    log(f"  the row of the largest card error: d = {dist[j].item():.3e}, card {err[j].item() / scale:.3e}, "
+        f"bound {bound[j].item() / scale:.3e}, CPU plain versions {err_plain[j].item() / scale:.3e} of max|g_ref|")
+    for label, sel in ((f"|K mu0 - 1| >= {POLE:g}", ~near), (f"|K mu0 - 1| < {POLE:g}", near)):
+        if sel.any():
+            log(f"  float32 against float64 on the rows with {label}: card {err[sel].max().item() / scale:.3e}, "
+                f"CPU plain versions {err_plain[sel].max().item() / scale:.3e} of max|g_ref|; "
+                f"card error / bound at most {(err[sel] / bound[sel]).max().item():.3f}")
+    check(bool(torch.isfinite(g).all()) and bool((err < bound).all()),
+          f"float32 card gradient within 2e-3 x max|g_ref| x max(1, ({POLE:g} / |K mu0 - 1|)^2), "
+          f"at most {POLE_CAP:g} x max|g_ref|, on every row")
+
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = min(times)
+    log(f"  forward + backward: {step_ms:.3f} ms per chunk (best of {REPS}: "
+        f"{', '.join(f'{t:.3f}' for t in times)}), {step_ms / CHUNK_COLS:.3f} ms per column; "
+        f"the forward-only chunk {chunk_ms:.3f} ms, ratio {step_ms / chunk_ms:.2f}")
+    phase_trace(step, "phase 6, one gradient step of the main-path chunk", step_ms)
+
+    log(f"  single column, L={NLAYERS}, NQuad={NQUAD}, NFourier={NQUAD}: d sum(flux_up) / d omega")
+    reset_launches()
+    t0 = time.perf_counter()
+    gc = column_gradient(torch.float32, "cuda")
+    torch.cuda.synchronize()
+    col_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    log(f"  launches: {launches}; host clock {col_ms:.3f} ms (build_problem, solve, flux_up, backward)")
+    check(launches["jacobi_eigh"] == 1 and launches["blocktri"] == 2 and launches["eig_stage"] == 0,
+          "the column's gradient takes the Jacobi kernel once and the block-Thomas kernel twice")
+    by_name["jacobi_eigh"]["launches_single_column_gradient"] = launches["jacobi_eigh"]
+    col_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        column_gradient(torch.float32, "cuda")
+        torch.cuda.synchronize()
+        col_times.append(1e3 * (time.perf_counter() - t0))
+    log(f"  then {', '.join(f'{t:.3f}' for t in col_times)} ms")
+    within_grad(gc, column_gradient(torch.float64, "cpu"), 2e-3, "float32 column gradient")
+
+
 def main():
     import torch
 
@@ -822,6 +1114,7 @@ def main():
     chunk_ms = phase_main_path(arrs, problem, tau, kernels)
     phase_trace(lambda: solve_fluxes(problem, tau), "phase 4, one main-path chunk", chunk_ms)
     phase_single_column(kernels)
+    phase_gradient(arrs, kernels, chunk_ms)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,13 @@ The discrete-ordinates radiative-transfer solver on an NVIDIA H100, on
 two paths: the batched flux solve over columns x bands (`solve_fluxes`)
 and the single-column solve behind the drop-in `pydisort` API.  The JAX
 package beside it is the reference; this package imports neither JAX nor
-it.  Three stages are CUDA kernels written for Hopper (``csrc/``), built
+it.  Four stages are CUDA kernels written for Hopper (``csrc/``), built
 with nvcc at first use: the fused eigen stage (both paths), the fused
-boundary-value solve (batched path, NQuad <= 32) and the generic
-block-Thomas solve (single-column path; batched path for NQuad 48, 64).
+boundary-value solve (batched path, NQuad <= 32), the generic
+block-Thomas solve (single-column path; batched path for NQuad 48, 64;
+the transposed solve of every gradient) and the batched two-sided Jacobi
+eigendecomposition (the eigen stage of every gradient).  Both paths take
+first-order reverse-mode gradients through ``torch.autograd``.
 """
 
 import torch
@@ -28,6 +31,7 @@ from .models.disort.types import (  # noqa: E402
 )
 from .ops.blocktri import solve_block_tridiag  # noqa: E402
 from .ops.eig import disort_eigh  # noqa: E402
+from .ops.jacobi import jacobi_eigh  # noqa: E402
 from .parallel.batch import (  # noqa: E402
     fluxes_at, make_batched_problem, solve_fluxes,
 )
@@ -37,6 +41,6 @@ __version__ = "0.1.0"
 __all__ = [
     "DisortConfig", "DisortProblem", "DisortSolution",
     "make_batched_problem", "solve_batched", "fluxes_at", "solve_fluxes",
-    "build_problem", "pydisort", "solve", "solve_block_tridiag", "disort_eigh",
+    "build_problem", "pydisort", "solve", "solve_block_tridiag", "disort_eigh", "jacobi_eigh",
     "problem_from_arrays", "solution_to_arrays",
 ]

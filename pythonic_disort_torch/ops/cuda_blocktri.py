@@ -16,6 +16,14 @@ explicit dense lower/diag/upper blocks, n <= 64.  Its plain version is
 
 The solution of either system is unique, so a kernel and its plain
 version are compared directly on x.
+
+Both are differentiable (first order, reverse mode), each through a
+``torch.autograd.Function`` whose backward solves the transposed
+block-tridiagonal system with the generic kernel, as the JAX package's
+custom VJPs do: `solve_block_tridiag_lanes_cuda` returns the outer-product
+cotangents of its blocks, `solve_bvp_fused` pulls them back through
+`blocktri.assemble_bvp_blocks`.  On CPU tensors the same Functions run
+the plain versions.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 from .blocktri import assemble_bvp_blocks, solve_block_tridiag_lanes
@@ -50,7 +59,7 @@ def _kernel(name, dtype):
 def _check(name, operands: dict, want: dict) -> None:
     """What both kernels ask of their operands (label -> tensor): CUDA
     tensors on one device, one of float32/float64, the shapes ``want``,
-    contiguous, no gradient."""
+    contiguous."""
     ops = tuple(operands.values())
     if any(x.device.type != "cuda" or x.device != ops[0].device for x in ops):
         raise ValueError(f"{name}: all operands must be CUDA tensors on one device")
@@ -61,8 +70,6 @@ def _check(name, operands: dict, want: dict) -> None:
             raise ValueError(f"{name}: {label} must be {want[label]}, got {tuple(x.shape)}")
     if not all(x.is_contiguous() for x in ops):
         raise ValueError(f"{name}: contiguous operands expected")
-    if any(x.requires_grad for x in ops):
-        raise NotImplementedError(f"{name}: no gradient yet (ROADMAP queue 1, item 8)")
 
 
 def _launch(name, operands, scratch, x, sizes) -> torch.Tensor:
@@ -74,15 +81,8 @@ def _launch(name, operands, scratch, x, sizes) -> torch.Tensor:
     return x
 
 
-def solve_bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
-    """Solve the BVP from its operands; returns x (L, 2N, B).
-
-    ``Gt`` (L, 2N, 2N, B) eigenvector blocks, ``decay_t`` (L, N, B)
-    homogeneous decays, ``bt_rows`` (N, 2N, B) bottom boundary rows,
-    ``rhs_t`` (L, 2N, B).  CPU tensors take `solve_bvp_fused_plain`; CUDA
-    tensors launch the kernel (counted in ``solve_bvp_fused.launches``)
-    or raise.
-    """
+def _bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
+    """`solve_bvp_fused` without its gradient rule."""
     ops = (Gt, decay_t, bt_rows, rhs_t)
     if all(x.device.type == "cpu" for x in ops):
         return solve_bvp_fused_plain(*ops)
@@ -103,18 +103,8 @@ def solve_bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     return x
 
 
-solve_bvp_fused.launches = 0
-
-
-def solve_block_tridiag_lanes_cuda(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
-    """Block-Thomas solve on explicit blocks; returns x (L, n, B).
-
-    ``lower_t``, ``diag_t``, ``upper_t`` (L, n, n, B) general dense
-    blocks, ``rhs_t`` (L, n, B); ``lower_t[0]`` and ``upper_t[-1]`` are
-    ignored and may hold anything.  CPU tensors take
-    `blocktri.solve_block_tridiag_lanes`; CUDA tensors launch the kernel
-    (counted in ``solve_block_tridiag_lanes_cuda.launches``) or raise.
-    """
+def _blocktri(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
+    """`solve_block_tridiag_lanes_cuda` without its gradient rule."""
     name = "solve_block_tridiag_lanes_cuda"
     ops = (lower_t, diag_t, upper_t, rhs_t)
     if all(x.device.type == "cpu" for x in ops):
@@ -131,6 +121,93 @@ def solve_block_tridiag_lanes_cuda(lower_t, diag_t, upper_t, rhs_t) -> torch.Ten
     x = _launch("blocktri", ops, WG, torch.empty_like(rhs_t), (L, n, B))
     solve_block_tridiag_lanes_cuda.launches += 1
     return x
+
+
+def transposed_system(lower_t, diag_t, upper_t):
+    """Blocks of the transposed system: block row l of A^T couples
+    y[l-1] through upper[l-1]^T and y[l+1] through lower[l+1]^T.  The
+    ignored edge blocks lower[0] and upper[L-1] are dropped."""
+    T = lambda m: m.transpose(1, 2)
+    zero = torch.zeros_like(diag_t[:1])
+    return torch.cat([zero, T(upper_t)[:-1]]), T(diag_t).contiguous(), torch.cat([T(lower_t)[1:], zero])
+
+
+def block_cotangents(y, x):
+    """Cotangents of the lower, diag and upper blocks (L, n, n, B) of a
+    solve ``A x = r`` whose adjoint solution is ``y`` (L, n, B)."""
+    zero = torch.zeros_like(x[:1])
+    x_prev = torch.cat([zero, x[:-1]])
+    x_next = torch.cat([x[1:], zero])
+    outer = lambda a, b: a[:, :, None, :] * b[:, None, :, :]
+    return -outer(y, x_prev), -outer(y, x), -outer(y, x_next)
+
+
+class _BlockTridiag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lower_t, diag_t, upper_t, rhs_t):
+        x = _blocktri(lower_t.detach(), diag_t.detach(), upper_t.detach(), rhs_t.detach())
+        ctx.save_for_backward(lower_t, diag_t, upper_t, x)
+        return x
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        lower_t, diag_t, upper_t, x = ctx.saved_tensors
+        y = _blocktri(*transposed_system(lower_t, diag_t, upper_t), ct.contiguous())
+        return (*block_cotangents(y, x), y)
+
+
+class _BvpFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, Gt, decay_t, bt_rows, rhs_t):
+        x = _bvp_fused(Gt.detach(), decay_t.detach(), bt_rows.detach(), rhs_t.detach())
+        ctx.save_for_backward(Gt, decay_t, bt_rows, x)
+        return x
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        Gt, decay_t, bt_rows, x = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = tuple(t.detach().requires_grad_() for t in (Gt, decay_t, bt_rows))
+            blocks = assemble_bvp_blocks(*inputs)
+        y = _blocktri(*transposed_system(*(b.detach() for b in blocks)), ct.contiguous())
+        # pull the block cotangents back through the (bi)linear assembly;
+        # at L = 1 the lower and upper blocks are constant zeros
+        live = [(b, c) for b, c in zip(blocks, block_cotangents(y, x)) if b.requires_grad]
+        grads = torch.autograd.grad([b for b, _ in live], inputs, [c for _, c in live], allow_unused=True)
+        return (*grads, y)
+
+
+def solve_bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
+    """Solve the BVP from its operands; returns x (L, 2N, B).
+
+    ``Gt`` (L, 2N, 2N, B) eigenvector blocks, ``decay_t`` (L, N, B)
+    homogeneous decays, ``bt_rows`` (N, 2N, B) bottom boundary rows,
+    ``rhs_t`` (L, 2N, B).  CPU tensors take `solve_bvp_fused_plain`; CUDA
+    tensors launch the kernel (counted in ``solve_bvp_fused.launches``)
+    or raise.  Differentiable in every operand: the backward assembles
+    the blocks and solves the transposed system with
+    `solve_block_tridiag_lanes_cuda`'s kernel.
+    """
+    return _BvpFused.apply(Gt, decay_t, bt_rows, rhs_t)
+
+
+solve_bvp_fused.launches = 0
+
+
+def solve_block_tridiag_lanes_cuda(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
+    """Block-Thomas solve on explicit blocks; returns x (L, n, B).
+
+    ``lower_t``, ``diag_t``, ``upper_t`` (L, n, n, B) general dense
+    blocks, ``rhs_t`` (L, n, B); ``lower_t[0]`` and ``upper_t[-1]`` are
+    ignored and may hold anything.  CPU tensors take
+    `blocktri.solve_block_tridiag_lanes`; CUDA tensors launch the kernel
+    (counted in ``solve_block_tridiag_lanes_cuda.launches``) or raise.
+    Differentiable in every operand: the backward solves the transposed
+    system with the same kernel.
+    """
+    return _BlockTridiag.apply(lower_t, diag_t, upper_t, rhs_t)
 
 
 solve_block_tridiag_lanes_cuda.launches = 0

@@ -72,7 +72,9 @@ def _check(At: torch.Tensor, Bt: torch.Tensor) -> None:
     if not (At.is_contiguous() and Bt.is_contiguous()):
         raise ValueError("eig_stage_lanes: contiguous operands expected")
     if At.requires_grad or Bt.requires_grad:
-        raise NotImplementedError("eig_stage_lanes: no gradient yet (ROADMAP queue 1, module 8)")
+        raise NotImplementedError(
+            "eig_stage_lanes: the kernel takes no gradient; ops.eig.disort_eigh_lanes routes operands "
+            "that require one through _eig_stage_ad and the Jacobi kernel (ops/jacobi.py)")
 
 
 def eig_stage_lanes(At: torch.Tensor, Bt: torch.Tensor):

@@ -12,6 +12,13 @@ through one Cholesky congruence.  This module builds At/Bt and applies
 the diagonal ``c`` scalings that take the stage's outputs back to the
 physical eigenbasis.  `disort_eigh` is the padded (..., N, N) interface:
 it flattens the leading axes into lanes around `disort_eigh_lanes`.
+
+Under a gradient (grad mode on and At or Bt requiring one) the stage is
+`_eig_stage_ad` instead of the kernel: the Cholesky factor, the
+congruence and the back-transforms in differentiable tensor code around
+`jacobi.jacobi_eigh` (CUDA kernel 4 on the card), which carries the eigh
+derivative rule.  It is the counterpart of the JAX package's
+``_eig_stage_ad``, the tangent path of its fused stage.
 """
 
 from __future__ import annotations
@@ -19,6 +26,36 @@ from __future__ import annotations
 import torch
 
 from .cuda_eig import eig_stage_lanes
+from .jacobi import jacobi_eigh
+
+
+def _eig_stage_ad(At: torch.Tensor, Bt: torch.Tensor):
+    """Differentiable eigen stage on padded (..., n, n) ``At``, ``Bt``.
+
+    Returns the raw ``(K (..., n), V, Yr, Pr, Qr (..., n, n))`` of
+    `cuda_eig.eig_stage_lanes`, eigen columns unsorted.  The Cholesky
+    factor and the triangular solve take PyTorch's native backward;
+    ``cholesky_ex`` does not synchronize the host to check the factor.
+    """
+    L = torch.linalg.cholesky_ex(-Bt)[0]                        # -Bt = L L^T
+    M = L.mT @ (-At) @ L                                        # L^T (-At) L
+    K2, Z = jacobi_eigh(M, sort=False)
+    K = torch.sqrt(torch.clamp(K2, min=torch.finfo(At.dtype).tiny))
+    V = torch.linalg.solve_triangular(L.mT, Z, upper=True)      # L^-T Z
+    LZ = L @ Z
+    Yr = -LZ / K[..., None, :]
+    Pr = LZ.mT
+    Qr = -K[..., :, None] * V.mT
+    return K, V, Yr, Pr, Qr
+
+
+def _eig_stage(At: torch.Tensor, Bt: torch.Tensor):
+    """The eigen stage on lanes operands (n, n, B): kernel 1, or
+    `_eig_stage_ad` in the padded layout when a gradient is taken."""
+    if torch.is_grad_enabled() and (At.requires_grad or Bt.requires_grad):
+        K, *mats = _eig_stage_ad(At.permute(2, 0, 1), Bt.permute(2, 0, 1))
+        return (K.T, *(x.permute(1, 2, 0) for x in mats))
+    return eig_stage_lanes(At.contiguous(), Bt.contiguous())
 
 
 def disort_eigh_lanes(Dp_l: torch.Tensor, Dm_l: torch.Tensor, mu: torch.Tensor,
@@ -35,10 +72,10 @@ def disort_eigh_lanes(Dp_l: torch.Tensor, Dm_l: torch.Tensor, mu: torch.Tensor,
     outer_rho = (rho[:, None] * rho[None, :])[:, :, None]
     inv_mu_diag = torch.diag(1.0 / mu)[:, :, None]
 
-    At = (outer_rho * (Dp_l - Dm_l) - inv_mu_diag).contiguous()
-    Bt = (outer_rho * (Dp_l + Dm_l) - inv_mu_diag).contiguous()
+    At = outer_rho * (Dp_l - Dm_l) - inv_mu_diag
+    Bt = outer_rho * (Dp_l + Dm_l) - inv_mu_diag
 
-    K, V, Yr, Pr, Qr = eig_stage_lanes(At, Bt)
+    K, V, Yr, Pr, Qr = _eig_stage(At, Bt)
     X = V / c[:, None, None]
     Y = Yr / c[:, None, None]
     P = Pr * c[None, :, None]

@@ -1,0 +1,149 @@
+"""Batched symmetric eigendecomposition by two-sided cyclic Jacobi.
+
+Counterpart of ``pythonic_disort_tpu/ops/jacobi.py``.  Large batches of
+tiny symmetric matrices are kept in the lanes layout (n, n, B), batch
+last, and every round of the round-robin schedule applies n/2 disjoint
+Givens rotations to rows, then columns; a sweep is n - 1 rounds covering
+all n(n-1)/2 pairs, and the sweep count is fixed by dtype.
+
+`jacobi_eigh_lanes_raw` runs `jacobi_eigh_lanes_plain` for CPU tensors and
+the CUDA kernel ``csrc/jacobi_eigh.cu`` (`cuda_jacobi.jacobi_eigh_lanes`)
+for CUDA tensors.  `jacobi_eigh` is the padded (..., n, n) interface with
+the first-order reverse-mode rule of the symmetric eigendecomposition;
+the gradient path of the eigen stage (`ops.eig`) runs through it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import cuda_jacobi
+
+
+def _round_robin_schedule(n: int):
+    """(n-1) rounds of n/2 disjoint pairs covering all pairs once, as
+    ``(p, q)`` index arrays of shape (n-1, n/2) with p < q."""
+    if n % 2:
+        raise ValueError(f"the round-robin Jacobi schedule pairs rows: n must be even, got {n}")
+    players = list(range(n))
+    rounds = []
+    for _ in range(n - 1):
+        pairs = [(players[i], players[n - 1 - i]) for i in range(n // 2)]
+        rounds.append([(min(a, b), max(a, b)) for a, b in pairs])
+        players = [players[0]] + [players[-1]] + players[1:-1]
+    arr = np.array(rounds)
+    return arr[..., 0], arr[..., 1]
+
+
+def default_sweeps(n: int, dtype: torch.dtype) -> int:
+    """Fixed sweep count: 5 in float32 (4 failed Stamnes golden 5a), 9 in
+    float64, for n <= 32; 8 and 12 above."""
+    if dtype == torch.float64:
+        return 9 if n <= 32 else 12
+    return 5 if n <= 32 else 8
+
+
+def jacobi_eigh_lanes_plain(At: torch.Tensor, sweeps: int):
+    """Plain PyTorch lanes Jacobi on ``At`` (n, n, B).
+
+    Returns ``(w (n, B), V (n, n, B))``, unsorted, ``A = V diag(w) V^T``
+    per lane.  The rotation of each pair comes from the current matrix
+    entries, one (c, s) for both of its rows; a tied pair (equal diagonal
+    entries) turns by 45 degrees.
+    """
+    n = At.shape[0]
+    p_sched, q_sched = _round_robin_schedule(n)
+    idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=At.device)
+    rounds = []
+    for r in range(n - 1):
+        inv = np.empty(n, dtype=np.int64)
+        inv[np.concatenate([p_sched[r], q_sched[r]])] = np.arange(n)
+        rounds.append((idx(p_sched[r]), idx(q_sched[r]), idx(inv)))
+    diag = idx(np.arange(n))
+    Vt = torch.zeros_like(At)
+    Vt[diag, diag] = 1.0
+    for _ in range(sweeps):
+        for p, q, inv in rounds:
+            app, aqq, apq = At[p, p], At[q, q], At[p, q]            # (n/2, B)
+            theta = (aqq - app) * 0.5
+            denom = theta.abs() + torch.sqrt(theta * theta + apq * apq)
+            sgn = torch.where(theta >= 0, 1.0, -1.0).to(At.dtype)
+            t = torch.where(apq.abs() > 0,
+                            sgn * apq / torch.where(denom > 0, denom, torch.ones_like(denom)),
+                            torch.zeros_like(apq))
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = t * c
+            crow, srow = c[:, None, :], s[:, None, :]
+            ccol, scol = c[None], s[None]
+            # rows: A <- R^T A
+            Ap, Aq = At[p], At[q]
+            At = torch.cat([crow * Ap - srow * Aq, srow * Ap + crow * Aq], dim=0)[inv]
+            # columns: A <- A R
+            Ap, Aq = At[:, p], At[:, q]
+            At = torch.cat([ccol * Ap - scol * Aq, scol * Ap + ccol * Aq], dim=1)[:, inv]
+            # eigenvectors: V <- V R
+            Vp, Vq = Vt[:, p], Vt[:, q]
+            Vt = torch.cat([ccol * Vp - scol * Vq, scol * Vp + ccol * Vq], dim=1)[:, inv]
+    return At[diag, diag], Vt
+
+
+def jacobi_eigh_lanes_raw(At: torch.Tensor, sweeps: int | None = None):
+    """Unsorted eigendecomposition of lanes operands ``At`` (n, n, B).
+
+    Returns ``(w (n, B), V (n, n, B))``.  CPU tensors take
+    `jacobi_eigh_lanes_plain`; CUDA tensors launch the kernel or raise.
+    Forward only: `jacobi_eigh` carries the gradient rule.
+    """
+    if sweeps is None:
+        sweeps = default_sweeps(At.shape[0], At.dtype)
+    if At.device.type == "cpu":
+        return jacobi_eigh_lanes_plain(At, sweeps)
+    return cuda_jacobi.jacobi_eigh_lanes(At, sweeps)
+
+
+class _JacobiEigh(torch.autograd.Function):
+    """``(w, V) = eigh(A)`` on (B, n, n); backward is the transpose of the
+    symmetric-eigendecomposition differential ``dw = diag(S)``,
+    ``dV = V (F o S)`` with ``S = V^T dA V`` and ``F_ij = 1/(w_j - w_i)``
+    where the gap is nonzero, 0 where it is zero."""
+
+    @staticmethod
+    def forward(ctx, A, sweeps, sort):
+        n = A.shape[-1]
+        w_l, V_l = jacobi_eigh_lanes_raw(A.detach().permute(1, 2, 0).contiguous(), sweeps)
+        w, V = w_l.T, V_l.permute(2, 0, 1)                          # (B, n), (B, n, n)
+        if sort:
+            order = torch.argsort(w, dim=-1)
+            w = torch.take_along_dim(w, order, dim=-1)
+            V = torch.take_along_dim(V, order[:, None, :].expand(-1, n, -1), dim=-1)
+        w, V = w.contiguous(), V.contiguous()
+        ctx.save_for_backward(w, V)
+        return w, V
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, w_bar, V_bar):
+        w, V = ctx.saved_tensors
+        gap = w[:, None, :] - w[:, :, None]                         # w_j - w_i
+        F = torch.where(gap != 0, 1.0 / torch.where(gap == 0, torch.ones_like(gap), gap),
+                        torch.zeros_like(gap))
+        inner = torch.zeros_like(V) if V_bar is None else F * (V.mT @ V_bar)
+        if w_bar is not None:
+            inner = inner + torch.diag_embed(w_bar)
+        return V @ inner @ V.mT, None, None
+
+
+def jacobi_eigh(A: torch.Tensor, sweeps: int | None = None, sort: bool = True):
+    """Eigendecomposition of symmetric ``A`` (..., n, n), batched.
+
+    Returns ``(w (..., n), V (..., n, n))`` with ``A = V diag(w) V^T``,
+    eigenvalues ascending (``sort=False`` leaves them in the order the
+    sweeps produce).  First-order reverse mode only.  n must be even; the
+    CUDA kernel takes n <= 32.
+    """
+    n = A.shape[-1]
+    batch_shape = tuple(A.shape[:-2])
+    w, V = _JacobiEigh.apply(A.reshape(-1, n, n), sweeps, sort)
+    return w.reshape(batch_shape + (n,)), V.reshape(batch_shape + (n, n))

@@ -46,8 +46,9 @@ def make_batched_problem(
     """Assemble a batched problem (leading axis = batch) on ``device``.
 
     The beam's Legendre basis at ``-mu0`` is tabulated on the host here
-    (``lam_mu0``, (B, NF, NLeg)); gradients with respect to mu0 would need
-    the device recurrence, which is not ported yet.
+    (``lam_mu0``, (B, NF, NLeg)), so a mu0 that requires a gradient is
+    refused.  A tensor argument is used as it is when its dtype and device
+    match, so its graph reaches the solve (gradients w.r.t. omega, tau, ...).
     """
     device = _device(device)
     B, L = np.shape(tau_arr)
@@ -63,7 +64,8 @@ def make_batched_problem(
     if isinstance(mu0, torch.Tensor):
         if mu0.requires_grad:
             raise NotImplementedError(
-                "gradients with respect to mu0 are not ported yet: ROADMAP queue 1, module 8")
+                "batched gradients with respect to mu0 are not ported (lam_mu0 is tabulated on the host; "
+                "the single-column solve takes them): ROADMAP queue 1, item 8")
         mu0_host = mu0.detach().cpu().double().numpy()
     else:
         mu0_host = np.asarray(mu0, np.float64)
