@@ -18,7 +18,12 @@ solves, and drives both paths of the port:
   bench configuration and through ``solve`` and ``eval.flux_up`` on the
   64-layer column, which take the Jacobi kernel as their eigen stage and
   the block-Thomas kernel for the transposed solve, against the port's
-  float64 CPU gradient, timed and traced.
+  float64 CPU gradient, timed and traced;
+- the widths the first four kernels do not take (phase 7): ``pydisort`` at
+  NQuad = 2, 6 and 30 (odd N) and 68 and 128 (N > 32, 2N > 64), a batched
+  NQuad=68 chunk and an NQuad=68 column gradient, which go through the
+  wide Jacobi kernel (5) and the wide block-Thomas kernel (6), against the
+  port's float64 CPU result.
 
 Every failed check raises, so the exit code is nonzero.  Its last two
 lines are a JSON line of per-kernel numbers and ``{"ok": true, "device":
@@ -129,12 +134,14 @@ def rows(arrs, n):
     return {k: v[:n] for k, v in arrs.items()}
 
 
-def column_kwargs(nt_cor=False):
-    """``pydisort`` arguments of one 64-layer column of the bench generator
-    (column 0, band 0) with intensity: NQuad = 32 and 32 Fourier modes."""
-    a = rows(bench_arrays(1), 1)
-    return dict(tau_arr=a["tau"][0], omega_arr=a["omega"][0], NQuad=NQUAD, Leg_coeffs_all=a["leg"][0],
-                mu0=float(a["mu0"][0]), I0=float(a["I0"][0]), phi0=1.0, f_arr=a["f_arr"][0], NT_cor=nt_cor)
+def column_kwargs(nt_cor=False, nquad=NQUAD, nlayers=NLAYERS, nfourier=None):
+    """``pydisort`` arguments of one column of the bench generator (column
+    0, band 0) with intensity: by default 64 layers, NQuad = 32 and 32
+    Fourier modes."""
+    a = rows(bench_arrays(1, nlayers=nlayers, nquad=nquad), 1)
+    kw = dict(tau_arr=a["tau"][0], omega_arr=a["omega"][0], NQuad=nquad, Leg_coeffs_all=a["leg"][0],
+              mu0=float(a["mu0"][0]), I0=float(a["I0"][0]), phi0=1.0, f_arr=a["f_arr"][0], NT_cor=nt_cor)
+    return kw if nfourier is None else dict(kw, NFourier=nfourier)
 
 
 def golden_cases():
@@ -211,7 +218,7 @@ class Recorder:
         self.wrapper, self.operands = wrapper, None
 
     def __call__(self, *ops):
-        self.operands = tuple(x.clone() for x in ops)
+        self.operands = tuple(x.clone() if hasattr(x, "clone") else x for x in ops)
         return self.wrapper(*ops)
 
     @property
@@ -236,16 +243,20 @@ def recording(module, name):
 
 def capture_kernel_inputs(problem, tau):
     """Run the batched path once, keeping copies of its kernels' operands:
-    ``eig``, and ``bvp`` (2N <= 32) or ``blocktri`` (wider)."""
+    ``eig`` (even N <= 32) or ``jacobi_wide`` (the congruence M, other N),
+    and ``bvp`` (2N <= 32) or ``blocktri`` (wider; kernel 3 or 6)."""
     from pythonic_disort_torch import solve_fluxes
     from pythonic_disort_torch.models.disort import batch_solve as bs_mod
+    from pythonic_disort_torch.ops import cuda_jacobi
     from pythonic_disort_torch.ops import eig as eig_mod
 
     with recording(eig_mod, "eig_stage_lanes") as eig, \
+            recording(cuda_jacobi, "jacobi_eigh_lanes_wide") as jacobi_wide, \
             recording(bs_mod, "solve_bvp_fused") as bvp, \
             recording(bs_mod, "solve_block_tridiag_lanes_cuda") as blocktri:
         solve_fluxes(problem, tau)
-    return {"eig": eig.operands, "bvp": bvp.operands, "blocktri": blocktri.operands}
+    return {"eig": eig.operands, "jacobi_wide": jacobi_wide.operands, "bvp": bvp.operands,
+            "blocktri": blocktri.operands}
 
 
 # ----------------------------------------------------------------- timing
@@ -724,13 +735,140 @@ def phase_kernels(main_ops):
     ]
 
 
+# kernel 5's widths (n = N = NQuad/2) and kernel 6's (L, n, B, dtype) in
+# phase 3
+WIDE_JACOBI_N = (1, 3, 17, 31, 33, 34, 64, 128)
+WIDE_BLOCKTRI = [(64, 68, 33, "float32"), (3, 66, 5, "float32"), (3, 66, 7, "float64"), (2, 68, 9, "float64"),
+                 (4, 128, 7, "float32"), (3, 128, 3, "float64"), (2, 136, 5, "float32"), (2, 136, 3, "float64"),
+                 (2, 256, 3, "float32"), (2, 256, 2, "float64")]
+# the batched NQuad=68 chunk of phases 3 and 7: 2 columns x 128 bands, 64 layers
+WIDE_NQUAD, WIDE_COLS, WIDE_SEED = 68, 2, 21
+
+
+def wide_jacobi_checks(At, label):
+    """Kernel 5 against its plain version in float64 on the same matrices,
+    order-free (`jacobi_checks`' readings, held to
+    `tools.check_wide.wide_limits`), in shared memory or the workspace as
+    the wrapper chooses, and again forced into the device workspace.  A
+    float32 batch also logs the plain version's own float32 readings: the
+    roundoff any float32 Jacobi leaves at this n."""
+    import torch
+    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes_wide, launch_wide
+    from pythonic_disort_torch.ops.jacobi import default_sweeps, jacobi_eigh_lanes_plain
+    from pythonic_disort_torch.tools.check_jacobi import check_readings, readings
+    from pythonic_disort_torch.tools.check_wide import wide_limits
+
+    n, sweeps = At.shape[0], default_sweeps(At.shape[0], At.dtype)
+    w64 = jacobi_eigh_lanes_plain(At.double(), default_sweeps(n, torch.float64))[0].T.sort(dim=1).values
+    lim = wide_limits(n, At.dtype)
+    out = {}
+    for storage, run in (("", lambda: jacobi_eigh_lanes_wide(At, sweeps)),
+                         (", device workspace", lambda: launch_wide(At, sweeps, workspace=True))):
+        w, V = run()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(w).all() and torch.isfinite(V).all()), f"{label}{storage}: outputs finite")
+        out[storage] = r = readings(At, w, V, w64)
+        check(check_readings(label + storage, r, At.dtype, log=log, limits=lim) == 0,
+              f"{label}{storage}: {', '.join(lim)} within {lim}")
+    if At.dtype == torch.float32:
+        r = readings(At, *jacobi_eigh_lanes_plain(At, sweeps), w64)
+        log(f"  {label}, the plain version in float32: sorted w rel {r['w']:.3e}, per-lane |V^T V - I| "
+            f"{r['orth']:.3e}, |V diag(w) V^T - A| rel {r['recon']:.3e}")
+    return out[""]
+
+
+def phase_wide_kernels():
+    """Phase 3 for kernels 5 and 6, the widths the JAX package serves with
+    jnp: each against its plain version on operands of real solves and on
+    random batches, float32 and float64, shared memory and device
+    workspace; then each timed at the batched NQuad=68 chunk's shape."""
+    import torch
+    from pythonic_disort_torch.ops.blocktri import solve_block_tridiag_lanes
+    from pythonic_disort_torch.ops.cuda_blocktri import launch_wide as blocktri_launch_wide
+    from pythonic_disort_torch.ops.cuda_blocktri import solve_block_tridiag_lanes_wide
+    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes_wide
+    from pythonic_disort_torch.ops.jacobi import default_sweeps, jacobi_eigh_lanes_plain
+    from pythonic_disort_torch.tools.check_blocktri import random_blocks
+    from pythonic_disort_torch.tools.check_jacobi import scan_matrices
+
+    log("phase 3: kernels 5 and 6 against their plain versions")
+    dt = {"float32": torch.float32, "float64": torch.float64}
+    for n in WIDE_JACOBI_N:
+        # the congruence M of a batched float64 solve at NQuad = 2n
+        # (3 layers x 128 bands), and the same M in float32
+        M = capture_kernel_inputs(*make_problem(bench_arrays(1, seed=30 + n, nlayers=3, nquad=2 * n),
+                                                torch.float64, "cuda", nquad=2 * n))["jacobi_wide"][0]
+        M = M[..., :301].contiguous()
+        wide_jacobi_checks(M, f"jacobi_wide n={n} B={M.shape[2]} f64 (congruence M, NQuad={2 * n})")
+        wide_jacobi_checks(M.float(), f"jacobi_wide n={n} B={M.shape[2]} f32 (congruence M, NQuad={2 * n})")
+        for name, dtype in dt.items():
+            wide_jacobi_checks(scan_matrices(n, 37, n, dtype), f"jacobi_wide n={n} B=37 {name} (random symmetric)")
+
+    # the batched NQuad=68 chunk: M (n = 34) and the blocks (n = 68)
+    ops = capture_kernel_inputs(*make_problem(bench_arrays(WIDE_COLS, seed=WIDE_SEED, nquad=WIDE_NQUAD),
+                                              torch.float32, "cuda", nquad=WIDE_NQUAD))
+    M = ops["jacobi_wide"][0]
+    jac = wide_jacobi_checks(M, f"jacobi_wide n={M.shape[0]} B={M.shape[2]} f32 (batched NQuad={WIDE_NQUAD} chunk)")
+    blocks = ops["blocktri"]
+    shape = lambda o: f"L={o[1].shape[0]} n={o[1].shape[1]} B={o[1].shape[3]}"
+    bt_abs, bt_rel = blocktri_checks(blocks, f"blocktri_wide {shape(blocks)} f32 (batched NQuad={WIDE_NQUAD} chunk)")
+    for L_, n_, B_, name in WIDE_BLOCKTRI:
+        o = random_blocks(L_, n_, B_, 100 * L_ + n_, dt[name])
+        label = f"blocktri_wide L={L_} n={n_} B={B_} {name} (dense, NaN edge blocks)"
+        blocktri_checks(o, label)
+        x = blocktri_launch_wide(*o, workspace=True)
+        torch.cuda.synchronize()
+        _, rel = lane_rel_err(x, solve_block_tridiag_lanes(*(t.double().nan_to_num(0.0) for t in o)))
+        tol = 1e-3 if dt[name] == torch.float32 else 1e-9
+        log(f"  {label}, device workspace: per-lane rel {rel:.3e}")
+        check(bool(torch.isfinite(x).all()) and rel < tol, f"{label}, device workspace: within {tol:g} per lane")
+
+    log(f"timing kernels 5 and 6 at the batched NQuad={WIDE_NQUAD} chunk's shapes (CUDA events)")
+    n, _, B = M.shape
+    sweeps = default_sweeps(n, M.dtype)
+    esz = M.element_size()
+    jac_ms = cuda_ms(lambda: jacobi_eigh_lanes_wide(M, sweeps), 5)
+    jac_plain_ms = cuda_ms(lambda: jacobi_eigh_lanes_plain(M, sweeps), 1)
+    eigh_ms = cuda_ms(lambda: in_chunks(lambda m: torch.linalg.eigh(m.permute(2, 0, 1)), M), 2)
+    jac_bound, jac_by = bound_ms((2 * n * n + n) * B * esz, jacobi_flops(n, sweeps) * B, "float32")
+    log(f"  jacobi_eigh_wide n={n} B={B}: {jac_ms:.4f} ms (plain {jac_plain_ms:.3f} ms, torch.linalg.eigh on the "
+        f"same M {eigh_ms:.3f} ms, bound {jac_bound:.4f} ms by {jac_by}: {(2 * n * n + n) * B * esz / 1e9:.3f} GB, "
+        f"{jacobi_flops(n, sweeps) * B:.3e} FLOP)")
+    L, nb, _, Bb = blocks[1].shape
+    nbytes = (sum(x.numel() for x in blocks) - 2 * nb * nb * Bb + blocks[3].numel()) * esz
+    bt_bound, bt_by = bound_ms(nbytes, blocktri_flops(L, nb) * Bb, "float32")
+    bt_ms = cuda_ms(lambda: solve_block_tridiag_lanes_wide(*blocks), 5)
+    bt_plain_ms = cuda_ms(lambda: solve_block_tridiag_lanes(*blocks), 1)
+    scratch = 2 * L * nb * (nb + 1) * Bb * esz
+    log(f"  blocktri_wide {shape(blocks)}: {bt_ms:.4f} ms (plain {bt_plain_ms:.3f} ms, bound {bt_bound:.4f} ms by "
+        f"{bt_by}: {nbytes / 1e9:.3f} GB in and out, {blocktri_flops(L, nb) * Bb:.3e} FLOP; scratch stack written "
+        f"and read {scratch / 1e9:.3f} GB)")
+    return [
+        dict(name="jacobi_eigh_wide", route="cuda", source="pythonic_disort_torch/csrc/jacobi_eigh_wide.cu",
+             replaces="pythonic_disort_tpu/ops/pallas_jacobi.py:244",
+             replaces_function="jacobi_eigh_lanes_pallas, at the odd n and n > 32 where the JAX package runs jnp",
+             launches=None, max_abs_err=jac["w_abs"], max_err=jac["w"], ms=jac_ms, plain_ms=jac_plain_ms,
+             bound_ms=jac_bound, bound_by=jac_by, library_ms=eigh_ms,
+             library_call=f"torch.linalg.eigh on the same (B, {n}, {n}) M in chunks of {EIGH_CHUNK}",
+             timed_at=f"n={n} B={B} float32, the congruence M of the batched NQuad={WIDE_NQUAD} chunk"),
+        dict(name="blocktri_wide", route="cuda", source="pythonic_disort_torch/csrc/blocktri_wide.cu",
+             replaces="pythonic_disort_tpu/ops/pallas_blocktri.py:553",
+             replaces_function="solve_block_tridiag_lanes_pallas, at the n > 64 where the JAX package runs jnp",
+             launches=None, max_abs_err=bt_abs, max_err=bt_rel, ms=bt_ms, plain_ms=bt_plain_ms,
+             bound_ms=bt_bound, bound_by=bt_by, library_ms=None, library_call=None,
+             timed_at=f"{shape(blocks)} float32, the blocks of the batched NQuad={WIDE_NQUAD} chunk"),
+    ]
+
+
 def wrappers():
-    from pythonic_disort_torch.ops.cuda_blocktri import solve_block_tridiag_lanes_cuda, solve_bvp_fused
+    from pythonic_disort_torch.ops.cuda_blocktri import (
+        solve_block_tridiag_lanes_cuda, solve_block_tridiag_lanes_wide, solve_bvp_fused)
     from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes
-    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes
+    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes, jacobi_eigh_lanes_wide
 
     return {"eig_stage": eig_stage_lanes, "bvp_fused": solve_bvp_fused, "blocktri": solve_block_tridiag_lanes_cuda,
-            "jacobi_eigh": jacobi_eigh_lanes}
+            "jacobi_eigh": jacobi_eigh_lanes, "jacobi_eigh_wide": jacobi_eigh_lanes_wide,
+            "blocktri_wide": solve_block_tridiag_lanes_wide}
 
 
 def reset_launches():
@@ -756,8 +894,9 @@ def phase_main_path(arrs, problem, tau, kernels):
         k["launches"], k["launches_on"] = launches[k["name"]], "batched flux path, one chunk"
     check(launches["eig_stage"] > 0 and launches["bvp_fused"] > 0,
           "the eigen and fused BVP kernels launched on the main path")
-    check(launches["blocktri"] == 0 and launches["jacobi_eigh"] == 0,
-          "the forward-only NQuad=32 chunk takes neither the generic block-Thomas nor the Jacobi kernel")
+    check(launches["blocktri"] == 0 and launches["jacobi_eigh"] == 0
+          and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0,
+          "the forward-only NQuad=32 chunk takes neither the generic block-Thomas nor a Jacobi kernel")
     check(all(torch.isfinite(x).all().item() for x in out), "fluxes finite")
     check(all(x.shape == (CHUNK_COLS * NBANDS, NLAYERS) for x in out), "fluxes have shape (1024, 64)")
 
@@ -942,7 +1081,7 @@ def phase_single_column(kernels):
                 min(times[1:]))
 
 
-def batched_gradient(arrs, dtype, device):
+def batched_gradient(arrs, dtype, device, nquad=NQUAD):
     """One gradient step of the batched path as a function: d loss / d omega
     with loss = sum(fup^2) + sum(fdn * fdir) (the loss of
     tests_tpu/test_tpu_production.py's gradient test), omega a leaf that
@@ -951,7 +1090,7 @@ def batched_gradient(arrs, dtype, device):
     from pythonic_disort_torch import solve_fluxes
 
     omega = torch.tensor(arrs["omega"], dtype=dtype, device=device, requires_grad=True)
-    problem, tau = make_problem(dict(arrs, omega=omega), dtype, device)
+    problem, tau = make_problem(dict(arrs, omega=omega), dtype, device, nquad=nquad)
 
     def step():
         fup, fdn, fdir = solve_fluxes(problem, tau)
@@ -960,15 +1099,15 @@ def batched_gradient(arrs, dtype, device):
     return step
 
 
-def column_gradient(dtype, device):
+def column_gradient(dtype, device, nquad=NQUAD, only_flux=False):
     """d sum(flux_up) / d omega (64,) of the 64-layer column through
     build_problem, solve and eval.flux_up."""
     import torch
     import pythonic_disort_torch as pt
     from pythonic_disort_torch.models.disort import eval as ev
 
-    kwargs = column_kwargs()
-    _, prob = pt.build_problem(**kwargs, dtype=dtype, device=device)
+    kwargs = column_kwargs(nquad=nquad)
+    _, prob = pt.build_problem(**kwargs, only_flux=only_flux, dtype=dtype, device=device)
     prob.omega_arr = prob.omega_arr.clone().requires_grad_()
     tau = torch.linspace(0.0, float(kwargs["tau_arr"][-1]), 8, dtype=dtype, device=device)
     flux_up = ev.flux_up(pt.solve(prob), tau)
@@ -1014,7 +1153,7 @@ def phase_gradient(arrs, kernels, chunk_ms):
     launches = read_launches()
     log(f"  launches in one gradient step: {launches}")
     check(launches["jacobi_eigh"] >= 1 and launches["bvp_fused"] == 1 and launches["blocktri"] >= 1
-          and launches["eig_stage"] == 0,
+          and launches["eig_stage"] == 0 and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0,
           "one gradient step takes the Jacobi kernel, the fused BVP kernel once, the block-Thomas kernel "
           "for the transposed solve, and not the forward-only eigen kernel")
     by_name = {k["name"]: k for k in kernels}
@@ -1094,6 +1233,154 @@ def phase_gradient(arrs, kernels, chunk_ms):
     log(f"  then {', '.join(f'{t:.3f}' for t in col_times)} ms")
     within_grad(gc, column_gradient(torch.float64, "cpu"), 2e-3, "float32 column gradient")
 
+# phase 7 columns: NQuad -> (layers, NFourier); cut for NQuad = 68 and 128,
+# whose float64 CPU reference at 64 layers and NFourier = NQuad takes minutes
+WIDTH_COLUMNS = {2: (NLAYERS, None), 6: (NLAYERS, None), 30: (NLAYERS, None), 68: (16, None), 128: (8, 16)}
+WIDE_REF_ROWS = 8       # rows of a batched call held against float64 on the CPU
+# batched calls at odd N (one column x 128 bands, 64 layers): kernel 5 and
+# the fused boundary-value kernel
+ODD_BATCHED = (2, 6, 30)
+
+
+def phase_widths(kernels):
+    """Phase 7: the NQuad values that take kernels 5 and 6, float32 on the
+    card against the port's float64 CPU result."""
+    import torch
+    from pythonic_disort_torch import pydisort, solve_fluxes
+
+    f32 = dict(dtype=torch.float32, device="cuda")
+    by_name = {k["name"]: k for k in kernels}
+    log("phase 7: widths, pydisort, solve_fluxes and a gradient at NQuad values that take kernels 5 and 6, f32")
+    per_call = {}
+    for nquad, (nlayers, nfourier) in WIDTH_COLUMNS.items():
+        kwargs = column_kwargs(nquad=nquad, nlayers=nlayers, nfourier=nfourier)
+        tau = np.linspace(0.0, kwargs["tau_arr"][-1], 8)
+        phi = np.array([0.0, 1.0, 4.0])
+        label = f"NQuad={nquad} L={nlayers} NFourier={nfourier or nquad}"
+        reset_launches()
+        _, fu, fd, u0, u = pydisort(**kwargs, **f32)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"  {label}: launches in one pydisort call: {launches}")
+        per_call[nquad] = {k: launches[k] for k in ("jacobi_eigh_wide", "blocktri", "blocktri_wide")}
+        wide = nquad > 64
+        check(launches["jacobi_eigh_wide"] > 0 and launches["eig_stage"] == 0 and launches["jacobi_eigh"] == 0,
+              f"{label}: the eigen stage takes kernel 5, not kernel 1 or 4")
+        check((launches["blocktri_wide"] > 0 and launches["blocktri"] == 0) if wide
+              else (launches["blocktri"] > 0 and launches["blocktri_wide"] == 0),
+              f"{label}: the block-Thomas solve takes kernel {6 if wide else 3}")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, fu64, fd64, u064, u64 = pydisort(**kwargs, dtype=torch.float64, device="cpu")
+        within(fu64(tau), fu(tau), f"{label} flux_up")
+        for lbl, a, b in zip(("flux_down diffuse", "flux_down direct"), fd64(tau), fd(tau)):
+            within(a, b, f"{label} {lbl}")
+        within(u064(tau), u0(tau), f"{label} u0")
+        out = u(tau, phi)
+        check(out.shape == (nquad, 8, 3) and np.isfinite(out).all(), f"{label}: u is finite with shape ({nquad}, 8, 3)")
+        within(u64(tau, phi), out, f"{label} u")
+        if nquad > 64:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                nt = dict(kwargs, NT_cor=True)
+                within(pydisort(**nt, dtype=torch.float64, device="cpu")[4](tau, phi),
+                       pydisort(**nt, **f32)[4](tau, phi), f"{label} u with the NT corrections")
+                # the plain versions in float32 on the CPU: float32's own loss
+                _, _, _, u0c, uc = pydisort(**kwargs, dtype=torch.float32, device="cpu")
+            log(f"  {label}: the plain versions in float32 on the CPU: max |u0 - u0_64| "
+                f"{np.abs(u0c(tau) - u064(tau)).max():.3e}, max |u - u_64| {np.abs(uc(tau, phi) - u64(tau, phi)).max():.3e}")
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pydisort(**kwargs, **f32)[1](tau[-1])
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        log(f"  {label}: host-clock ms per pydisort call (solve and one flux_up): first {times[0]:.3f}, "
+            f"then {', '.join(f'{t:.3f}' for t in times[1:])}")
+    by_name["jacobi_eigh_wide"]["launches_pydisort"] = {q: c["jacobi_eigh_wide"] for q, c in per_call.items()}
+    by_name["blocktri_wide"]["launches_pydisort"] = {q: c["blocktri_wide"] for q, c in per_call.items()}
+
+    log(f"  batched flux call at NQuad={WIDE_NQUAD}: {WIDE_COLS} columns x {NBANDS} bands, L={NLAYERS}")
+    arrs = bench_arrays(WIDE_COLS, seed=WIDE_SEED, nquad=WIDE_NQUAD)
+    problem, ptau = make_problem(arrs, torch.float32, "cuda", nquad=WIDE_NQUAD)
+    reset_launches()
+    out = solve_fluxes(problem, ptau)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"  launches: {launches}")
+    check(launches["jacobi_eigh_wide"] > 0 and launches["blocktri_wide"] > 0
+          and launches["eig_stage"] == launches["blocktri"] == launches["bvp_fused"] == 0,
+          f"the NQuad={WIDE_NQUAD} batched solve takes kernels 5 and 6 and no other")
+    for name in ("jacobi_eigh_wide", "blocktri_wide"):
+        by_name[name]["launches"] = launches[name]
+        by_name[name]["launches_on"] = f"batched flux path at NQuad={WIDE_NQUAD}, one chunk"
+    check(all(torch.isfinite(x).all().item() for x in out), f"NQuad={WIDE_NQUAD} fluxes finite")
+    t0 = time.perf_counter()
+    p64, tau64 = make_problem(rows(arrs, WIDE_REF_ROWS), torch.float64, "cpu", nquad=WIDE_NQUAD)
+    ref = solve_fluxes(p64, tau64)
+    log(f"  float64 CPU reference ({WIDE_REF_ROWS} solves) in {time.perf_counter() - t0:.1f} s")
+    for lbl, a, b in zip(("fup", "fdn", "fdir"), ref, out):
+        within(a.numpy(), b[:WIDE_REF_ROWS].double().cpu().numpy(), f"NQuad={WIDE_NQUAD} {lbl}")
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve_fluxes(problem, ptau)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    chunk_ms = min(times)
+    log(f"  NQuad={WIDE_NQUAD} chunk: {chunk_ms:.3f} ms (best of {REPS}: {', '.join(f'{t:.3f}' for t in times)}), "
+        f"{WIDE_COLS / chunk_ms * 1e3:.3f} columns/s; kernel 5 {by_name['jacobi_eigh_wide']['ms']:.3f} ms x "
+        f"{launches['jacobi_eigh_wide']}, kernel 6 {by_name['blocktri_wide']['ms']:.3f} ms x {launches['blocktri_wide']}")
+
+    for nquad in ODD_BATCHED:
+        arrs = bench_arrays(1, seed=WIDE_SEED + nquad, nquad=nquad)
+        problem, ptau = make_problem(arrs, torch.float32, "cuda", nquad=nquad)
+        reset_launches()
+        out = solve_fluxes(problem, ptau)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"  batched flux call at NQuad={nquad}: 1 column x {NBANDS} bands, L={NLAYERS}; launches: {launches}")
+        check(launches["jacobi_eigh_wide"] > 0 and launches["bvp_fused"] > 0
+              and launches["eig_stage"] == launches["blocktri"] == launches["blocktri_wide"] == 0,
+              f"the NQuad={nquad} batched solve takes kernels 5 and 2")
+        p64, tau64 = make_problem(rows(arrs, WIDE_REF_ROWS), torch.float64, "cpu", nquad=nquad)
+        for lbl, a, b in zip(("fup", "fdn", "fdir"), solve_fluxes(p64, tau64), out):
+            within(a.numpy(), b[:WIDE_REF_ROWS].double().cpu().numpy(), f"NQuad={nquad} {lbl}")
+
+    # the batched gradient with every kernel in float64 (the float32 one
+    # loses digits near the beam pole, phase 6)
+    for nquad in (6, WIDE_NQUAD):
+        arrs = rows(bench_arrays(1, seed=WIDE_SEED + nquad, nquad=nquad), WIDE_REF_ROWS)
+        reset_launches()
+        g = batched_gradient(arrs, torch.float64, "cuda", nquad=nquad)()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log(f"  batched gradient at NQuad={nquad}, {WIDE_REF_ROWS} rows, float64; launches: {launches}")
+        check(launches["jacobi_eigh_wide"] >= 1 and launches["eig_stage"] == launches["jacobi_eigh"] == 0
+              and (launches["blocktri_wide"] == 2 if nquad > 64 else launches["blocktri"] >= 1),
+              f"the NQuad={nquad} batched gradient takes kernel 5 and kernel {6 if nquad > 64 else 3} "
+              "for the transposed solve")
+        within_grad(g, batched_gradient(arrs, torch.float64, "cpu", nquad=nquad)(), 1e-8,
+                    f"float64 card gradient at NQuad={nquad} (every kernel in float64)")
+
+    log(f"  single column, L={NLAYERS}, NQuad={WIDE_NQUAD}, flux only: d sum(flux_up) / d omega")
+    col = dict(nquad=WIDE_NQUAD, only_flux=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    gc = column_gradient(torch.float32, "cuda", **col)
+    torch.cuda.synchronize()
+    grad_ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_launches()
+    log(f"  launches: {launches}; host clock {grad_ms:.3f} ms (build_problem, solve, flux_up, backward)")
+    check(launches["jacobi_eigh_wide"] >= 1 and launches["blocktri_wide"] == 2
+          and launches["eig_stage"] == launches["jacobi_eigh"] == launches["blocktri"] == 0,
+          "the column's gradient takes kernel 5 and kernel 6 twice (forward and transposed solve)")
+    for name in ("jacobi_eigh_wide", "blocktri_wide"):
+        by_name[name]["launches_column_gradient"] = launches[name]
+    within_grad(gc, column_gradient(torch.float64, "cpu", **col), 2e-3, f"float32 NQuad={WIDE_NQUAD} column gradient")
+
 
 def main():
     import torch
@@ -1110,11 +1397,12 @@ def main():
     arrs = bench_arrays(CHUNK_COLS)
     problem, tau = make_problem(arrs, torch.float32, "cuda")
     main_ops = capture_kernel_inputs(problem, tau)
-    kernels = phase_kernels(main_ops)
+    kernels = phase_kernels(main_ops) + phase_wide_kernels()
     chunk_ms = phase_main_path(arrs, problem, tau, kernels)
     phase_trace(lambda: solve_fluxes(problem, tau), "phase 4, one main-path chunk", chunk_ms)
     phase_single_column(kernels)
     phase_gradient(arrs, kernels, chunk_ms)
+    phase_widths(kernels)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

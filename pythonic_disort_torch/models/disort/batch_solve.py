@@ -9,13 +9,15 @@ crosses the lane dimension:
 
 - the phase-function kernels D+/D- are built in lanes by per-mode
   matmuls over the Legendre contraction;
-- the eigen stage is `ops.eig.disort_eigh_lanes` (CUDA kernel 1);
+- the eigen stage is `ops.eig.disort_eigh_lanes` (CUDA kernel 1 at even
+  N <= 32; at other N its Cholesky + Jacobi route, CUDA kernel 5);
 - the BVP is `ops.cuda_blocktri.solve_bvp_fused` (CUDA kernel 2), fed the
   eigenvector blocks, decays and bottom boundary rows, for 2N <= 32
-  streams; wider systems (NQuad = 48, 64) are more than that kernel's one
-  row per thread holds, so their blocks are assembled
-  (`ops.blocktri.assemble_bvp_blocks`) and solved by the generic
-  block-Thomas kernel (`ops.cuda_blocktri.solve_block_tridiag_lanes_cuda`);
+  streams; wider systems are more than that kernel's one row per thread
+  holds, so their blocks are assembled (`ops.blocktri.assemble_bvp_blocks`)
+  and solved by the generic block-Thomas solve
+  (`ops.cuda_blocktri.solve_block_tridiag_lanes_cuda`: kernel 3 for
+  2N <= 64, kernel 6 above);
 - the flux quadrature ``(mu W) @ G C`` is folded into per-layer tables
   (``fvec_*``, ``fb_*``), so ``G`` and ``GC`` are never materialized.
 """

@@ -4,9 +4,10 @@ Counterpart of ``pythonic_disort_tpu/models/disort/solve.py``.  One
 atmosphere, every feature: beam, isotropic internal source, BDRF surface,
 delta-M scaling, any number of Fourier modes and layers.  The Fourier
 modes and layers are leading batch axes of tensor code: one eigen stage
-for all (mode, layer) pairs (`ops.eig.disort_eigh`, CUDA kernel 1) and
-one block-tridiagonal solve for all modes (`ops.blocktri.
-solve_block_tridiag`, the generic block-Thomas CUDA kernel).  The tensors
+for all (mode, layer) pairs (`ops.eig.disort_eigh`: CUDA kernel 1, or
+kernel 5 at odd N and N > 32) and one block-tridiagonal solve for all
+modes (`ops.blocktri.solve_block_tridiag`: the generic block-Thomas CUDA
+kernel 3, or kernel 6 for NQuad > 64).  The tensors
 of the problem carry no batch axis here; `batch_solve.solve_batched` is
 the batched flux path.
 

@@ -9,9 +9,12 @@ Thomas with partial pivoting; 2N <= 32.  Its plain version assembles the
 blocks (`blocktri.assemble_bvp_blocks`) and runs the pivoted block-Thomas
 loop (`blocktri.solve_block_tridiag_lanes`).
 
-`solve_block_tridiag_lanes_cuda` (``csrc/blocktri.cu``, for
-``solve_block_tridiag_lanes_pallas``): the same pivoted block Thomas on
-explicit dense lower/diag/upper blocks, n <= 64.  Its plain version is
+`solve_block_tridiag_lanes_cuda` (for ``solve_block_tridiag_lanes_pallas``):
+the same pivoted block Thomas on explicit dense lower/diag/upper blocks.
+It launches ``csrc/blocktri.cu`` (kernel 3) at n <= 64, the sizes the TPU
+kernel takes, and ``csrc/blocktri_wide.cu`` (kernel 6,
+`solve_block_tridiag_lanes_wide`) above, where the JAX package runs its
+jnp block Thomas.  Their plain version is
 `blocktri.solve_block_tridiag_lanes`.
 
 The solution of either system is unique, so a kernel and its plain
@@ -103,24 +106,79 @@ def _bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     return x
 
 
+def _check_blocks(name, lower_t, diag_t, upper_t, rhs_t):
+    """`_check` for explicit blocks; returns (L, n, B)."""
+    if diag_t.dim() != 4 or diag_t.shape[1] != diag_t.shape[2]:
+        raise ValueError(f"{name}: diag_t must be (L, n, n, B), got {tuple(diag_t.shape)}")
+    L, n, _, B = diag_t.shape
+    _check(name, dict(lower_t=lower_t, diag_t=diag_t, upper_t=upper_t, rhs_t=rhs_t),
+           dict(lower_t=(L, n, n, B), diag_t=(L, n, n, B), upper_t=(L, n, n, B), rhs_t=(L, n, B)))
+    if min(L, n, B) < 1:
+        raise ValueError(f"{name}: L, n, B >= 1 expected, got {tuple(diag_t.shape)}")
+    return L, n, B
+
+
 def _blocktri(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
     """`solve_block_tridiag_lanes_cuda` without its gradient rule."""
     name = "solve_block_tridiag_lanes_cuda"
     ops = (lower_t, diag_t, upper_t, rhs_t)
     if all(x.device.type == "cpu" for x in ops):
         return solve_block_tridiag_lanes(*ops)
-    if diag_t.dim() != 4 or diag_t.shape[1] != diag_t.shape[2]:
-        raise ValueError(f"{name}: diag_t must be (L, n, n, B), got {tuple(diag_t.shape)}")
-    L, n, _, B = diag_t.shape
-    _check(name, dict(lower_t=lower_t, diag_t=diag_t, upper_t=upper_t, rhs_t=rhs_t),
-           dict(lower_t=(L, n, n, B), diag_t=(L, n, n, B), upper_t=(L, n, n, B), rhs_t=(L, n, B)))
-    if not 1 <= n <= BLOCK_MAX or L < 1 or B < 1:
-        raise ValueError(f"{name}: the kernel takes n <= {BLOCK_MAX}, L >= 1, B >= 1; got {tuple(diag_t.shape)}")
+    L, n, B = _check_blocks(name, *ops)
+    if n > BLOCK_MAX:
+        return solve_block_tridiag_lanes_wide(*ops)
     # [W_l | g_l] stack written by the forward sweep, read by the backward
     WG = torch.empty((L, n, n + 1, B), dtype=diag_t.dtype, device=diag_t.device)
     x = _launch("blocktri", ops, WG, torch.empty_like(rhs_t), (L, n, B))
     solve_block_tridiag_lanes_cuda.launches += 1
     return x
+
+
+def _wide_kernel(dtype):
+    """The entry point of ``csrc/blocktri_wide.cu`` and its workspace query."""
+    lib = _build.load("blocktri_wide")
+    fn = getattr(lib, f"blocktri_wide_{_SUFFIX[dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ws = getattr(lib, f"blocktri_wide_workspace_{_SUFFIX[dtype]}")
+    ws.argtypes = [ctypes.c_int] * 2
+    ws.restype = ctypes.c_size_t
+    return fn, ws
+
+
+def launch_wide(lower_t, diag_t, upper_t, rhs_t, workspace: bool = False) -> torch.Tensor:
+    """Launch kernel 6 through its C entry point; not counted.  A device
+    workspace holds the augmented block where shared memory cannot, or
+    always with ``workspace=True``."""
+    ops = (lower_t, diag_t, upper_t, rhs_t)
+    L, n, B = _check_blocks("solve_block_tridiag_lanes_wide", *ops)
+    fn, ws_bytes = _wide_kernel(diag_t.dtype)
+    esz = diag_t.element_size()
+    nbytes = ws_bytes(n, B) or (B * n * (2 * n + 1) * esz if workspace else 0)
+    ws = torch.empty(nbytes // esz, dtype=diag_t.dtype, device=diag_t.device) if nbytes else None
+    # [W_l | g_l] stack, lane-major: written by the forward sweep, read by
+    # the next layer and the backward
+    WG = torch.empty((B, L, n, n + 1), dtype=diag_t.dtype, device=diag_t.device)
+    x = torch.empty_like(rhs_t)
+    err = fn(*(t.data_ptr() for t in (*ops, WG, x)), None if ws is None else ws.data_ptr(), L, n, B,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"blocktri_wide kernel launch failed: CUDA error {err}")
+    return x
+
+
+def solve_block_tridiag_lanes_wide(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
+    """Launch kernel 6 on explicit blocks (CUDA tensors, any n >= 1; see
+    `solve_block_tridiag_lanes_cuda` for shapes); returns x (L, n, B).
+    No gradient rule: `solve_block_tridiag_lanes_cuda` sends n > 64 here,
+    forward and backward.  Counted in
+    ``solve_block_tridiag_lanes_wide.launches``."""
+    x = launch_wide(lower_t, diag_t, upper_t, rhs_t)
+    solve_block_tridiag_lanes_wide.launches += 1
+    return x
+
+
+solve_block_tridiag_lanes_wide.launches = 0
 
 
 def transposed_system(lower_t, diag_t, upper_t):
@@ -202,8 +260,9 @@ def solve_block_tridiag_lanes_cuda(lower_t, diag_t, upper_t, rhs_t) -> torch.Ten
     ``lower_t``, ``diag_t``, ``upper_t`` (L, n, n, B) general dense
     blocks, ``rhs_t`` (L, n, B); ``lower_t[0]`` and ``upper_t[-1]`` are
     ignored and may hold anything.  CPU tensors take
-    `blocktri.solve_block_tridiag_lanes`; CUDA tensors launch the kernel
-    (counted in ``solve_block_tridiag_lanes_cuda.launches``) or raise.
+    `blocktri.solve_block_tridiag_lanes`; CUDA tensors launch kernel 3 at
+    n <= 64 (counted in ``solve_block_tridiag_lanes_cuda.launches``) and
+    kernel 6 above (`solve_block_tridiag_lanes_wide`), or raise.
     Differentiable in every operand: the backward solves the transposed
     system with the same kernel.
     """

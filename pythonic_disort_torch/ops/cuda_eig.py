@@ -22,6 +22,9 @@ import torch
 from . import _build
 
 
+STAGE_MAX = 32    # the kernel takes even n up to this (ops/eig.py routes the rest)
+
+
 def jacobi_sweeps(dtype: torch.dtype) -> int:
     """Fixed one-sided Jacobi sweep count for n <= 32 (ops/jacobi.py):
     5 in float32 (4 failed Stamnes golden 5a), 9 in float64."""
@@ -66,9 +69,9 @@ def _check(At: torch.Tensor, Bt: torch.Tensor) -> None:
     if At.dim() != 3 or At.shape[0] != At.shape[1] or Bt.shape != At.shape:
         raise ValueError(f"eig_stage_lanes: (n, n, B) operands expected, got {tuple(At.shape)}, {tuple(Bt.shape)}")
     n, _, B = At.shape
-    if n % 2 or not 2 <= n <= 32 or B < 1:
-        # the round-robin Jacobi schedule pairs rows (ops/jacobi.py)
-        raise ValueError(f"eig_stage_lanes: the kernel takes even n <= 32 and B >= 1, got {tuple(At.shape)}")
+    if n % 2 or not 2 <= n <= STAGE_MAX or B < 1:
+        # one row per thread of a warp; ops/eig.py routes other widths elsewhere
+        raise ValueError(f"eig_stage_lanes: the kernel takes even n <= {STAGE_MAX} and B >= 1, got {tuple(At.shape)}")
     if not (At.is_contiguous() and Bt.is_contiguous()):
         raise ValueError("eig_stage_lanes: contiguous operands expected")
     if At.requires_grad or Bt.requires_grad:

@@ -1,54 +1,73 @@
-"""The batched two-sided Jacobi eigendecomposition: CUDA kernel
-``csrc/jacobi_eigh.cu``.
+"""The batched two-sided Jacobi eigendecomposition: CUDA kernels
+``csrc/jacobi_eigh.cu`` and ``csrc/jacobi_eigh_wide.cu``.
 
-Counterpart of ``pythonic_disort_tpu/ops/pallas_jacobi.py::
-jacobi_eigh_lanes_pallas``.  Its plain PyTorch version is
-`jacobi.jacobi_eigh_lanes_plain`, which `jacobi.jacobi_eigh_lanes_raw`
-runs for CPU tensors.  The two agree on the eigenpairs but not on their
-order or signs: the kernel steers its rotations by a carried diagonal, as
-the TPU kernel does.  Both turn a tied pair by 45 degrees, where the TPU
-kernel skips it for the round.
+Counterparts of ``pythonic_disort_tpu/ops/pallas_jacobi.py::
+jacobi_eigh_lanes_pallas``.  `jacobi_eigh_lanes` (kernel 4) takes what
+the TPU kernel takes, even n <= 32; `jacobi_eigh_lanes_wide` (kernel 5)
+takes any n >= 1, and `jacobi.jacobi_eigh_lanes_raw` sends it every
+other width, where the JAX package runs its jnp Jacobi.  Their plain
+PyTorch version is `jacobi.jacobi_eigh_lanes_plain`, which
+`jacobi.jacobi_eigh_lanes_raw` runs for CPU tensors.  Kernel 4 and the
+plain version agree on the eigenpairs but not on their order or signs:
+kernel 4 steers its rotations by a carried diagonal, as the TPU kernel
+does; kernel 5 reads them from the matrix, as the plain version does.
+All turn a tied pair by 45 degrees, where the TPU kernel skips it for the
+round.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
 
-_FN = {torch.float32: "jacobi_eigh_f32", torch.float64: "jacobi_eigh_f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+NARROW_MAX = 32    # kernel 4 takes even n up to this
 
 
 def _kernel(dtype):
-    fn = getattr(_build.load("jacobi_eigh"), _FN[dtype])
+    fn = getattr(_build.load("jacobi_eigh"), f"jacobi_eigh_{_SUFFIX[dtype]}")
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(At: torch.Tensor) -> None:
+def _wide_kernel(dtype):
+    """The entry point of ``csrc/jacobi_eigh_wide.cu`` and its workspace query."""
+    lib = _build.load("jacobi_eigh_wide")
+    fn = getattr(lib, f"jacobi_eigh_wide_{_SUFFIX[dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    ws = getattr(lib, f"jacobi_eigh_wide_workspace_{_SUFFIX[dtype]}")
+    ws.argtypes = [ctypes.c_int] * 2
+    ws.restype = ctypes.c_size_t
+    return fn, ws
+
+
+def _check(name: str, At: torch.Tensor) -> None:
     if At.device.type != "cuda":
-        raise ValueError("jacobi_eigh_lanes: At must be a CUDA tensor")
-    if At.dtype not in _FN:
-        raise TypeError(f"jacobi_eigh_lanes: float32 or float64 expected, got {At.dtype}")
-    if At.dim() != 3 or At.shape[0] != At.shape[1]:
-        raise ValueError(f"jacobi_eigh_lanes: (n, n, B) operand expected, got {tuple(At.shape)}")
-    n, _, B = At.shape
-    if n % 2 or not 2 <= n <= 32 or B < 1:
-        # the round-robin schedule pairs rows; one row per thread of a warp
-        raise ValueError(f"jacobi_eigh_lanes: the kernel takes even n <= 32 and B >= 1, got {tuple(At.shape)}")
+        raise ValueError(f"{name}: At must be a CUDA tensor")
+    if At.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: float32 or float64 expected, got {At.dtype}")
+    if At.dim() != 3 or At.shape[0] != At.shape[1] or At.shape[0] < 1 or At.shape[2] < 1:
+        raise ValueError(f"{name}: (n, n, B) operand with n, B >= 1 expected, got {tuple(At.shape)}")
     if not At.is_contiguous():
-        raise ValueError("jacobi_eigh_lanes: contiguous operand expected")
+        raise ValueError(f"{name}: contiguous operand expected")
 
 
 def jacobi_eigh_lanes(At: torch.Tensor, sweeps: int):
     """Launch the kernel on ``At`` (n, n, B), a CUDA tensor; returns
     ``(w (n, B), V (n, n, B))``, unsorted.  Counted in
     ``jacobi_eigh_lanes.launches``."""
-    _check(At)
+    _check("jacobi_eigh_lanes", At)
     n, _, B = At.shape
+    if n % 2 or n > NARROW_MAX:
+        # the round-robin schedule pairs rows; one row per thread of a warp
+        raise ValueError(f"jacobi_eigh_lanes: the kernel takes even n <= {NARROW_MAX} (other widths: "
+                         f"jacobi_eigh_lanes_wide), got {tuple(At.shape)}")
     w = torch.empty((n, B), dtype=At.dtype, device=At.device)
     V = torch.empty_like(At)
     err = _kernel(At.dtype)(At.data_ptr(), w.data_ptr(), V.data_ptr(), n, B, sweeps,
@@ -60,3 +79,56 @@ def jacobi_eigh_lanes(At: torch.Tensor, sweeps: int):
 
 
 jacobi_eigh_lanes.launches = 0
+
+_slot_tables: dict = {}
+
+
+def slot_table(n: int, device) -> torch.Tensor:
+    """The round-robin schedule of ``jacobi._round_robin_schedule`` as the
+    wide kernel's slot table: (rounds, (n+1)/2, 2) int32 on ``device``,
+    each slot a pair (p, q), and for odd n one slot (idle row, -1) per
+    round.  Cached per (n, device)."""
+    from .jacobi import _round_robin_schedule
+
+    key = (n, str(device))
+    table = _slot_tables.get(key)
+    if table is None:
+        p, q = _round_robin_schedule(n)
+        slots = np.stack([p, q], axis=-1)
+        if n % 2:
+            idle = [np.setdiff1d(np.arange(n), np.concatenate([pr, qr]))[0] for pr, qr in zip(p, q)]
+            slots = np.concatenate([slots, np.stack([idle, np.full(len(idle), -1)], axis=-1)[:, None]], axis=1)
+        table = torch.as_tensor(slots.reshape(-1, (n + 1) // 2, 2), dtype=torch.int32).to(device)
+        _slot_tables[key] = table
+    return table
+
+
+def launch_wide(At: torch.Tensor, sweeps: int, workspace: bool = False):
+    """Launch kernel 5 through its C entry point; not counted.  A device
+    workspace holds A and V where shared memory cannot, or always with
+    ``workspace=True``."""
+    _check("jacobi_eigh_lanes_wide", At)
+    n, _, B = At.shape
+    fn, ws_bytes = _wide_kernel(At.dtype)
+    w = torch.empty((n, B), dtype=At.dtype, device=At.device)
+    V = torch.empty_like(At)
+    slots = slot_table(n, At.device)
+    nbytes = ws_bytes(n, B) or (B * 2 * n * n * At.element_size() if workspace else 0)
+    ws = torch.empty(nbytes // At.element_size(), dtype=At.dtype, device=At.device) if nbytes else None
+    err = fn(At.data_ptr(), w.data_ptr(), V.data_ptr(), slots.data_ptr(), n, B, slots.shape[0], sweeps,
+             None if ws is None else ws.data_ptr(), torch.cuda.current_stream(At.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"jacobi_eigh_wide kernel launch failed: CUDA error {err}")
+    return w, V
+
+
+def jacobi_eigh_lanes_wide(At: torch.Tensor, sweeps: int):
+    """Launch kernel 5 on ``At`` (n, n, B), a CUDA tensor, any n >= 1;
+    returns ``(w (n, B), V (n, n, B))``, unsorted.  Counted in
+    ``jacobi_eigh_lanes_wide.launches``."""
+    out = launch_wide(At, sweeps)
+    jacobi_eigh_lanes_wide.launches += 1
+    return out
+
+
+jacobi_eigh_lanes_wide.launches = 0

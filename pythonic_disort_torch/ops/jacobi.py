@@ -2,13 +2,17 @@
 
 Counterpart of ``pythonic_disort_tpu/ops/jacobi.py``.  Large batches of
 tiny symmetric matrices are kept in the lanes layout (n, n, B), batch
-last, and every round of the round-robin schedule applies n/2 disjoint
-Givens rotations to rows, then columns; a sweep is n - 1 rounds covering
-all n(n-1)/2 pairs, and the sweep count is fixed by dtype.
+last, and every round of the round-robin schedule applies disjoint Givens
+rotations to rows, then columns; a sweep covers all n(n-1)/2 pairs once,
+and the sweep count is fixed by dtype.  Even n has n - 1 rounds of n/2
+pairs; odd n (which the JAX package refuses) has n rounds of (n-1)/2
+pairs, each row sitting out one round per sweep.
 
-`jacobi_eigh_lanes_raw` runs `jacobi_eigh_lanes_plain` for CPU tensors and
-the CUDA kernel ``csrc/jacobi_eigh.cu`` (`cuda_jacobi.jacobi_eigh_lanes`)
-for CUDA tensors.  `jacobi_eigh` is the padded (..., n, n) interface with
+`jacobi_eigh_lanes_raw` runs `jacobi_eigh_lanes_plain` for CPU tensors;
+for CUDA tensors it launches ``csrc/jacobi_eigh.cu``
+(`cuda_jacobi.jacobi_eigh_lanes`) at even n <= 32, the sizes the TPU
+kernel takes, and ``csrc/jacobi_eigh_wide.cu``
+(`cuda_jacobi.jacobi_eigh_lanes_wide`) at every other n.  `jacobi_eigh` is the padded (..., n, n) interface with
 the first-order reverse-mode rule of the symmetric eigendecomposition;
 the gradient path of the eigen stage (`ops.eig`) runs through it.
 """
@@ -23,10 +27,22 @@ from . import cuda_jacobi
 
 
 def _round_robin_schedule(n: int):
-    """(n-1) rounds of n/2 disjoint pairs covering all pairs once, as
-    ``(p, q)`` index arrays of shape (n-1, n/2) with p < q."""
+    """Rounds of disjoint pairs covering all n(n-1)/2 pairs once, as
+    ``(p, q)`` index arrays of shape (rounds, pairs) with p < q.
+
+    Even n: n - 1 rounds of n/2 pairs (the JAX package's schedule).  Odd
+    n: the schedule of n + 1 players with the last one a dummy, each
+    round's pair with the dummy dropped: n rounds of (n-1)/2 pairs, the
+    row left out idle for the round.  n = 1 has no rounds.
+    """
+    if n < 1:
+        raise ValueError(f"the round-robin Jacobi schedule needs n >= 1, got {n}")
     if n % 2:
-        raise ValueError(f"the round-robin Jacobi schedule pairs rows: n must be even, got {n}")
+        if n == 1:
+            return np.zeros((0, 0), dtype=np.int64), np.zeros((0, 0), dtype=np.int64)
+        p, q = _round_robin_schedule(n + 1)
+        keep = q != n                                   # the dummy is the largest index
+        return p[keep].reshape(n, -1), q[keep].reshape(n, -1)
     players = list(range(n))
     rounds = []
     for _ in range(n - 1):
@@ -57,15 +73,17 @@ def jacobi_eigh_lanes_plain(At: torch.Tensor, sweeps: int):
     p_sched, q_sched = _round_robin_schedule(n)
     idx = lambda a: torch.as_tensor(a, dtype=torch.long, device=At.device)
     rounds = []
-    for r in range(n - 1):
+    for p, q in zip(p_sched, q_sched):
+        # odd n: the idle row rides along unrotated behind the pairs
+        idle = np.setdiff1d(np.arange(n), np.concatenate([p, q]))
         inv = np.empty(n, dtype=np.int64)
-        inv[np.concatenate([p_sched[r], q_sched[r]])] = np.arange(n)
-        rounds.append((idx(p_sched[r]), idx(q_sched[r]), idx(inv)))
+        inv[np.concatenate([p, q, idle])] = np.arange(n)
+        rounds.append((idx(p), idx(q), idx(idle), idx(inv)))
     diag = idx(np.arange(n))
     Vt = torch.zeros_like(At)
     Vt[diag, diag] = 1.0
     for _ in range(sweeps):
-        for p, q, inv in rounds:
+        for p, q, idle, inv in rounds:
             app, aqq, apq = At[p, p], At[q, q], At[p, q]            # (n/2, B)
             theta = (aqq - app) * 0.5
             denom = theta.abs() + torch.sqrt(theta * theta + apq * apq)
@@ -79,13 +97,13 @@ def jacobi_eigh_lanes_plain(At: torch.Tensor, sweeps: int):
             ccol, scol = c[None], s[None]
             # rows: A <- R^T A
             Ap, Aq = At[p], At[q]
-            At = torch.cat([crow * Ap - srow * Aq, srow * Ap + crow * Aq], dim=0)[inv]
+            At = torch.cat([crow * Ap - srow * Aq, srow * Ap + crow * Aq, At[idle]], dim=0)[inv]
             # columns: A <- A R
             Ap, Aq = At[:, p], At[:, q]
-            At = torch.cat([ccol * Ap - scol * Aq, scol * Ap + ccol * Aq], dim=1)[:, inv]
+            At = torch.cat([ccol * Ap - scol * Aq, scol * Ap + ccol * Aq, At[:, idle]], dim=1)[:, inv]
             # eigenvectors: V <- V R
             Vp, Vq = Vt[:, p], Vt[:, q]
-            Vt = torch.cat([ccol * Vp - scol * Vq, scol * Vp + ccol * Vq], dim=1)[:, inv]
+            Vt = torch.cat([ccol * Vp - scol * Vq, scol * Vp + ccol * Vq, Vt[:, idle]], dim=1)[:, inv]
     return At[diag, diag], Vt
 
 
@@ -93,14 +111,18 @@ def jacobi_eigh_lanes_raw(At: torch.Tensor, sweeps: int | None = None):
     """Unsorted eigendecomposition of lanes operands ``At`` (n, n, B).
 
     Returns ``(w (n, B), V (n, n, B))``.  CPU tensors take
-    `jacobi_eigh_lanes_plain`; CUDA tensors launch the kernel or raise.
-    Forward only: `jacobi_eigh` carries the gradient rule.
+    `jacobi_eigh_lanes_plain`; CUDA tensors launch a kernel or raise:
+    kernel 4 at even n <= 32, the wide kernel at any other n.  Forward
+    only: `jacobi_eigh` carries the gradient rule.
     """
+    n = At.shape[0]
     if sweeps is None:
-        sweeps = default_sweeps(At.shape[0], At.dtype)
+        sweeps = default_sweeps(n, At.dtype)
     if At.device.type == "cpu":
         return jacobi_eigh_lanes_plain(At, sweeps)
-    return cuda_jacobi.jacobi_eigh_lanes(At, sweeps)
+    if n % 2 == 0 and n <= cuda_jacobi.NARROW_MAX:
+        return cuda_jacobi.jacobi_eigh_lanes(At, sweeps)
+    return cuda_jacobi.jacobi_eigh_lanes_wide(At, sweeps)
 
 
 class _JacobiEigh(torch.autograd.Function):
@@ -140,8 +162,7 @@ def jacobi_eigh(A: torch.Tensor, sweeps: int | None = None, sort: bool = True):
 
     Returns ``(w (..., n), V (..., n, n))`` with ``A = V diag(w) V^T``,
     eigenvalues ascending (``sort=False`` leaves them in the order the
-    sweeps produce).  First-order reverse mode only.  n must be even; the
-    CUDA kernel takes n <= 32.
+    sweeps produce).  First-order reverse mode only.
     """
     n = A.shape[-1]
     batch_shape = tuple(A.shape[:-2])

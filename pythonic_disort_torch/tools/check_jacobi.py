@@ -107,10 +107,10 @@ def readings(At, w, V, w64=None):
     )
 
 
-def check_readings(label, r, dtype, log=print, keys=None):
-    """Log the readings and hold them (``keys``, default all) to `LIMITS`;
-    returns the failed count."""
-    lim = LIMITS[dtype]
+def check_readings(label, r, dtype, log=print, keys=None, limits=None):
+    """Log the readings and hold them (``keys``, default all) to ``limits``
+    (default `LIMITS`); returns the failed count."""
+    lim = limits or LIMITS[dtype]
     bad = [k for k in (keys or lim) if not r[k] < lim[k]]
     log(f"  {label}: sorted w rel {r['w']:.3e}, per-lane |V^T V - I| {r['orth']:.3e}, "
         f"|V diag(w) V^T - A| rel {r['recon']:.3e} (abs {r['recon_abs']:.3e}) "

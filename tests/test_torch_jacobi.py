@@ -136,11 +136,18 @@ def test_jacobi_grad_degenerate_eigenvalues():
     np.testing.assert_allclose(g, fd, rtol=1e-6)
 
 
-def test_odd_n_raises():
-    with pytest.raises(ValueError, match="even"):
-        jacobi._round_robin_schedule(5)
-    with pytest.raises(ValueError, match="even"):
-        jacobi.jacobi_eigh(torch.eye(3, dtype=torch.float64)[None])
+@pytest.mark.parametrize("n", [3, 5])
+def test_odd_n_schedule_and_eigenpairs(n):
+    """Odd n, which the JAX package's schedule refuses: n rounds of
+    (n-1)/2 disjoint pairs cover every pair once, and `jacobi_eigh`
+    returns the eigenpairs of LAPACK's eigh (float64 roundoff)."""
+    p, q = jacobi._round_robin_schedule(n)
+    assert p.shape == (n, (n - 1) // 2)
+    assert sorted(zip(p.ravel(), q.ravel())) == [(i, j) for i in range(n) for j in range(i + 1, n)]
+    A = _spd(n, 4, seed=40 + n)
+    w, V = (x.numpy() for x in jacobi.jacobi_eigh(torch.as_tensor(A)))
+    np.testing.assert_allclose(w, np.linalg.eigvalsh(A), rtol=1e-12)
+    np.testing.assert_allclose(np.einsum("bij,bj,bkj->bik", V, w, V), A, atol=1e-12 * np.abs(A).max())
 
 
 def test_kernel_wrapper_takes_cuda_tensors_only():
