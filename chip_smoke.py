@@ -34,7 +34,6 @@ imports nothing of JAX.
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 import time
@@ -104,16 +103,9 @@ def check(ok, what):
 # ----------------------------------------------------------------- inputs
 def bench_arrays(ncols, seed=42, nlayers=NLAYERS, nquad=NQUAD):
     """The generator of bench.py:51-77 (same seed, same draws)."""
-    rng = np.random.default_rng(seed)
-    B = ncols * NBANDS
-    nleg_all = nquad + 1
-    thickness = rng.uniform(0.05, 0.5, (B, nlayers))
-    tau = np.cumsum(thickness, axis=1)
-    omega = rng.uniform(0.3, 0.99, (B, nlayers))
-    g = rng.uniform(0.5, 0.85, (B, nlayers))
-    leg = g[..., None] ** np.arange(nleg_all)[None, None, :]
-    return dict(tau=tau, omega=omega, leg=leg, f_arr=leg[..., nquad],
-                mu0=rng.uniform(0.2, 1.0, B), I0=np.full(B, np.pi))
+    from pythonic_disort_torch.tools.check_bvp import bench_arrays as generator
+
+    return generator(ncols, seed=seed, nlayers=nlayers, nquad=nquad, nbands=NBANDS)
 
 
 def make_problem(arrs, dtype, device, nquad=NQUAD):
@@ -546,20 +538,16 @@ def phase_device():
 
 def phase_build():
     from pythonic_disort_torch.ops import _build
+    from pythonic_disort_torch.tools.check_bvp import ptxas_entries
 
     t0 = time.perf_counter()
     _build.build(_build.kernel_sources())
     log(f"built {_build.kernel_sources()} in {time.perf_counter() - t0:.1f} s")
-    # what ptxas reports for every kernel variant (the template arguments are
-    # the mangled part: f/d for float/double, then LiNE for each integer N)
-    entry = re.compile(
-        r"Compiling entry function '\S*?kernelI(\w+?)EvP\S*' for.*?(\d+) bytes stack frame, (\d+) bytes spill stores, "
-        r"(\d+) bytes spill loads.*?Used (\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", re.S)
+    # what ptxas reports for every kernel variant
     for name in _build.kernel_sources():
-        report = _build._target(name).with_suffix(".log").read_text()
-        for args, stack, st, ld, regs, smem in entry.findall(report):
+        for args, regs, stack, st, ld, smem in ptxas_entries(name):
             log(f"  ptxas {name}<{args}>: {regs} registers, stack {stack} B, spill stores {st} B, "
-                f"spill loads {ld} B, static shared {smem or 0} B")
+                f"spill loads {ld} B, static shared {smem} B")
 
 
 def phase_kernels(main_ops):
@@ -574,6 +562,7 @@ def phase_kernels(main_ops):
     from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes
     from pythonic_disort_torch.ops.jacobi import _round_robin_schedule, default_sweeps, jacobi_eigh_lanes_plain
     from pythonic_disort_torch.tools.check_blocktri import random_blocks
+    from pythonic_disort_torch.tools.check_bvp import spill_bytes
     from pythonic_disort_torch.tools.check_jacobi import (
         DEFAULT_SWEEP_READINGS, constant_diagonal_matrices, scan_matrices, tied_matrices)
 
@@ -676,13 +665,17 @@ def phase_kernels(main_ops):
     bvp_plain_ms = cuda_ms(lambda: solve_bvp_fused_plain(*ops), 2)
     bvp_bytes = sum(o.numel() for o in ops) * esz + ops[3].numel() * esz
     bvp_bound, bvp_by = bound_ms(bvp_bytes, bvp_flops(L, n2 // 2) * Bb, "float32")
+    # the route kernel 2 replaces: the blocks assembled by tensor code, then kernel 3
+    route_ms = cuda_ms(lambda: solve_block_tridiag_lanes_cuda(*assemble_bvp_blocks(*ops[:3]), ops[3]), 20)
     jac_bound, jac_by = bound_ms((2 * n * n + n) * B * esz, jacobi_flops(n, jac_sweeps) * B, "float32")
     log(f"  eig_stage: {eig_ms:.4f} ms (plain {eig_plain_ms:.3f} ms, torch.linalg.eigh on M "
         f"{eigh_ms:.3f} ms, bound {eig_bound:.4f} ms by {eig_by})")
     log(f"  jacobi_eigh: {jac_ms:.4f} ms (plain {jac_plain_ms:.3f} ms, torch.linalg.eigh on the same M "
         f"{eigh_ms:.3f} ms, bound {jac_bound:.4f} ms by {jac_by}: {(2 * n * n + n) * B * esz / 1e9:.3f} GB, "
         f"{jacobi_flops(n, jac_sweeps) * B:.3e} FLOP)")
-    log(f"  bvp_fused: {bvp_ms:.4f} ms (plain {bvp_plain_ms:.3f} ms, bound {bvp_bound:.4f} ms by {bvp_by})")
+    log(f"  bvp_fused: {bvp_ms:.4f} ms (plain {bvp_plain_ms:.3f} ms, bound {bvp_bound:.4f} ms by {bvp_by}; "
+        f"assemble_bvp_blocks + blocktri on the same operands {route_ms:.4f} ms; "
+        f"ptxas spills {spill_bytes('bvp_fused')} B)")
 
     def time_blocktri(o, what, reps, plain_reps):
         """ms, plain ms, bound ms and what bounds it, at the shape of ``o``."""
@@ -718,7 +711,7 @@ def phase_kernels(main_ops):
              replaces_function="solve_bvp_fused_pallas",
              launches=None, max_abs_err=bvp_abs, max_err=bvp_rel, ms=bvp_ms, plain_ms=bvp_plain_ms,
              bound_ms=bvp_bound, bound_by=bvp_by, library_ms=None, library_call=None,
-             gradient_route_max_err=bvp_grad_err),
+             assembled_route_ms=route_ms, gradient_route_max_err=bvp_grad_err),
         dict(name="blocktri", route="cuda", source="pythonic_disort_torch/csrc/blocktri.cu",
              replaces="pythonic_disort_tpu/ops/pallas_blocktri.py:553",
              replaces_function="solve_block_tridiag_lanes_pallas",

@@ -57,6 +57,70 @@ def test_bvp_solve_matches_jax(L, N, B):
     np.testing.assert_allclose(x, x_ref, rtol=1e-10, atol=1e-12 * np.abs(x_ref).max())
 
 
+def _h_carry_model(Gt, decay, bt_rows, rhs):
+    """numpy model of the fused kernel's order of operations
+    (``csrc/bvp_fused.cu``), one lane at a time: the blocks assembled from
+    G, the decays and the boundary rows; the correction
+    ``dhat[:N] = D[:N] + C Mbot_l[:N]`` with ``C = Mtop_{l-1}[N:] [H | g]``
+    of the layer before; Gauss-Jordan on ``[dhat | [0; I_N] | rhat]`` with
+    no row exchanges, the pivot the largest |entry| of the column among
+    the rows not yet pivoted (the lowest row winning a tie), one reciprocal
+    a step and the scaling deferred to the copy-out; the last layer over
+    ``[dhat | rhat]`` alone; back substitution ``x_l = g_l + H_l (Mbot_{l+1}[:N]
+    x_{l+1})``.  Returns x (L, 2N, B) and the number of pivots taken off
+    the diagonal."""
+    L, n2, _, B = Gt.shape
+    N = n2 // 2
+    x = np.empty((L, n2, B))
+    off_diagonal = 0
+    for b in range(B):
+        G, d, r = Gt[..., b], decay[..., b], rhs[..., b]
+        Mtop = [np.concatenate([G[l][:, :N] * d[l], G[l][:, N:]], axis=1) for l in range(L)]
+        Mbot = [np.concatenate([G[l][:, :N], G[l][:, N:] * d[l]], axis=1) for l in range(L)]
+        Hs, gs = [], []
+        for l in range(L):
+            last = l == L - 1
+            D = np.concatenate([(1.0 if l == 0 else -1.0) * Mbot[l][N:], bt_rows[..., b] if last else Mtop[l][:N]])
+            a = np.concatenate([D] + ([] if last else [np.eye(n2)[:, N:]]) + [r[l][:, None]], axis=1)
+            if l > 0:
+                C = Mtop[l - 1][N:] @ np.concatenate([Hs[-1], gs[-1][:, None]], axis=1)
+                a[:N, :n2] += C[:, :N] @ Mbot[l][:N]
+                a[:N, -1] -= C[:, N]
+            used = np.zeros(n2, bool)
+            var, rcp = np.empty(n2, int), np.empty(n2)
+            for k in range(n2):
+                pr = int(np.argmax(np.where(used, -1.0, np.abs(a[:, k]))))
+                rpv = 1.0 / a[pr, k]
+                others = np.arange(n2) != pr
+                a[others, k + 1:] -= (a[others, k] * rpv)[:, None] * a[pr, k + 1:]
+                used[pr], var[pr], rcp[pr] = True, k, rpv
+            off_diagonal += int((var != np.arange(n2)).sum())
+            sol = np.empty((n2, a.shape[1] - n2))
+            sol[var] = a[:, n2:] * rcp[:, None]
+            Hs.append(sol[:, :-1])
+            gs.append(sol[:, -1])
+        x[L - 1, :, b] = gs[-1]
+        for l in range(L - 2, -1, -1):
+            x[l, :, b] = gs[l] + Hs[l] @ (Mbot[l + 1][:N] @ x[l + 1, :, b])
+    return x, off_diagonal
+
+
+@pytest.mark.parametrize("L,N,zero_lead", [(1, 1, False), (3, 3, False), (5, 8, False), (4, 3, True)])
+def test_fused_kernel_order_of_operations_matches_jax(L, N, zero_lead):
+    """The fused kernel's algorithm, modelled in numpy, against the JAX
+    package's assembled blocks and block Thomas (float64)."""
+    ops = _operands(L, N, 3, seed=50 + 10 * L + N)
+    if zero_lead:
+        # D_0[0, 0] = Mbot_0[N, 0] = 0: an unpivoted elimination divides by zero
+        ops[0][:, N, 0, :] = 0.0
+    jops = [jnp.asarray(x) for x in ops]
+    x_ref = np.asarray(jbt.solve_block_tridiag_lanes(*jbt.assemble_bvp_blocks(*jops[:3]), jops[3]))
+    x, off_diagonal = _h_carry_model(*ops)
+    # the operands' dominant entries of D's first N columns lie in its bottom rows
+    assert off_diagonal > 0
+    np.testing.assert_allclose(x, x_ref, rtol=1e-10, atol=1e-12 * np.abs(x_ref).max())
+
+
 @pytest.mark.parametrize("L", [1, 3])
 def test_assemble_bvp_blocks_matches_jax(L):
     ops = _operands(L, 3, 4, seed=L)
