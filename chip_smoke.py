@@ -58,33 +58,12 @@ PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
 # with torch 2.11 / CUDA 12.8), so the plain eigen stage and the library
 # yardstick are timed in lane chunks.
 EIGH_CHUNK = 16384
-# Eigen-stage limits, per reading.  Sorted K and the eigen residual measure
-# the Jacobi convergence: on an H100 at the main-path shape (n=16,
-# B=65536, f32) the 5-sweep kernel reads 4.1e-7 and 7.9e-8, a 4-sweep
-# control the same, a 3-sweep control 1.2e-4 and 1.8e-6.  The float32
-# limits sit between the kernel and the 3-sweep control, and phase 3
-# checks that they reject it.  The Yr, Pr V = I and Qr Yr = I readings
-# hold for any orthogonal Z and measure roundoff alone: float32 unit
-# roundoff 6e-8 grown by the conditioning of -Bt (its 1/mu diagonal spans
-# ~200x at NQuad=32); float64 the same growth on 1.1e-16.
-EIG_TOL = {
-    "float32": dict(k_rel=5e-6, r_eig=5e-7, r_y=1e-4, r_p=1e-4, r_q=1e-4),
-    "float64": dict(k_rel=1e-10, r_eig=1e-10, r_y=1e-10, r_p=1e-9, r_q=1e-9),
-}
 # The float32 gradient's bound per row, 2e-3 x max|g_ref|, grows by
 # (POLE / d)^2 on a row whose distance d to the beam pole (see
 # `beam_pole_distance`) is below POLE: the conditioning of the particular
 # solution there, which the plain versions in float32 share.  The growth
 # stops at POLE_CAP x max|g_ref|, reached at d = POLE / sqrt(5).
 POLE, POLE_CAP = 1e-3, 1e-2
-EIG_READINGS = {
-    "k_rel": "sorted K, relative to the lane's largest K,",
-    "r_eig": "eigen residual |At Bt V - V K^2|",
-    "r_y": "Yr residual |Yr - Bt V/K|",
-    "r_p": "|Pr V - I|",
-    "r_q": "|Qr Yr - I|",
-}
-
 
 def log(*a):
     print(*a, flush=True)
@@ -177,28 +156,6 @@ def golden_cases():
         cases[name] = (dict(tau_arr=tau9, omega_arr=omega9, NQuad=8, Leg_coeffs_all=np.tile(leg, (6, 1)),
                             mu0=0, I0=0, phi0=0, b_neg=1 / pi), 0)
     return cases
-
-
-def phase_function_operands(n, B, seed, dtype, device):
-    """At, Bt (n, n, B) of the eigen stage for one Fourier mode of random
-    Henyey-Greenstein layers (albedo 0.2-0.99): the operands a solve at
-    NQuad = 2n builds, for widths the bench configuration does not reach."""
-    import torch
-    from pythonic_disort_torch.ops.quadrature import double_gauss
-
-    rng = np.random.default_rng(seed)
-    mu, w = double_gauss(2 * n)
-    ell = np.arange(2 * n)
-    coef = (rng.uniform(0.2, 0.99, B)[:, None] / 2) * (2 * ell + 1) \
-        * rng.uniform(0.0, 0.9, B)[:, None] ** ell
-    P = np.polynomial.legendre.legvander(mu, 2 * n - 1)
-    Dp = np.einsum("il,jl,bl->ijb", P, P, coef)
-    Dm = np.einsum("il,jl,bl->ijb", P, P * (-1.0) ** ell, coef)
-    rho = np.sqrt(w / mu)
-    outer = rho[:, None, None] * rho[None, :, None]
-    inv_mu = np.diag(1 / mu)[:, :, None]
-    t = lambda x: torch.tensor(x, dtype=dtype, device=device).contiguous()
-    return t(outer * (Dp - Dm) - inv_mu), t(outer * (Dp + Dm) - inv_mu)
 
 
 class Recorder:
@@ -324,40 +281,6 @@ def blocktri_flops(L, n):
 
 
 # ------------------------------------------------------------ eigen checks
-def plain_K(At, Bt):
-    """K of the plain stage in float64 on the CPU (cuSOLVER's batched eigh
-    refuses the main path's lane count), on At's device."""
-    from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes_plain
-
-    return eig_stage_lanes_plain(At.double().cpu(), Bt.double().cpu())[0].to(At.device)
-
-
-def eig_errors(At, Bt, outs, Kp):
-    """Order-free errors of eigen-stage outputs ``outs`` = (K, V, Yr, Pr, Qr)
-    against the float64 plain K ``Kp``, each the largest over the lanes."""
-    import torch
-
-    K, V, Yr, Pr, Qr = outs
-    A64, B64 = At.double().permute(2, 0, 1), Bt.double().permute(2, 0, 1)
-    p = lambda x: x.double().permute(2, 0, 1)               # (B, n, n)
-    K64, V64, Y64, P64, Q64 = K.double().T, p(V), p(Yr), p(Pr), p(Qr)
-    eye = torch.eye(At.shape[0], dtype=torch.float64, device=At.device)
-    ks, kp = K64.sort(dim=1).values, Kp.T.sort(dim=1).values
-    k_abs = (ks - kp).abs()
-    # residuals, each relative to the size of the terms it balances
-    AB = A64 @ B64
-    return dict(
-        k_abs=k_abs.max().item(),
-        k_rel=(k_abs / kp.amax(dim=1, keepdim=True)).max().item(),
-        r_eig=((AB @ V64 - V64 * K64[:, None, :] ** 2).abs().amax(dim=(1, 2))
-               / (AB.abs().amax(dim=(1, 2)) * V64.abs().amax(dim=(1, 2)))).max().item(),
-        r_y=((Y64 - B64 @ V64 / K64[:, None, :]).abs().amax(dim=(1, 2))
-             / Y64.abs().amax(dim=(1, 2))).max().item(),
-        r_p=(P64 @ V64 - eye).abs().max().item(),
-        r_q=(Q64 @ Y64 - eye).abs().max().item(),
-    )
-
-
 def log_eig_errors(label, e):
     log(f"  {label}: sorted K rel {e['k_rel']:.3e}, |At Bt V - V K^2| {e['r_eig']:.3e}, "
         f"|Yr - Bt V/K| {e['r_y']:.3e}, |Pr V - I| {e['r_p']:.3e}, |Qr Yr - I| {e['r_q']:.3e}")
@@ -366,17 +289,10 @@ def log_eig_errors(label, e):
 def eig_sweep_control(At, Bt, Kp, sweeps):
     """The eigen kernel with fewer Jacobi sweeps than its fixed count,
     called through its C entry point (not counted as a launch): a control
-    for the limits of `EIG_TOL`."""
-    import torch
-    from pythonic_disort_torch.ops import cuda_eig
+    for the limits of `tools.check_eig.EIG_TOL`."""
+    from pythonic_disort_torch.tools.check_eig import eig_errors, run_sweeps
 
-    n, _, B = At.shape
-    outs = (torch.empty((n, B), dtype=At.dtype, device=At.device),
-            *(torch.empty_like(At) for _ in range(4)))
-    err = cuda_eig._kernel(At.dtype)(
-        At.data_ptr(), Bt.data_ptr(), *(x.data_ptr() for x in outs), n, B, sweeps,
-        torch.cuda.current_stream(At.device).cuda_stream)
-    torch.cuda.synchronize()
+    err, outs = run_sweeps(At, Bt, sweeps)
     check(err == 0, f"{sweeps}-sweep control launched")
     e = eig_errors(At, Bt, outs, Kp)
     log_eig_errors(f"control, {sweeps} sweeps", e)
@@ -387,6 +303,7 @@ def eig_checks(At, Bt, label, full=False, Kp=None):
     """Kernel vs plain, order-free; returns (max_abs_err, max_rel_err)."""
     import torch
     from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes
+    from pythonic_disort_torch.tools.check_eig import EIG_READINGS, EIG_TOL, eig_errors, plain_K
 
     outs = eig_stage_lanes(At, Bt)
     torch.cuda.synchronize()
@@ -554,6 +471,7 @@ def phase_kernels(main_ops):
     import torch
     from pythonic_disort_torch import pydisort
     from pythonic_disort_torch.ops import cuda_blocktri
+    from pythonic_disort_torch.ops import eig as eig_mod
     from pythonic_disort_torch.ops.blocktri import assemble_bvp_blocks, solve_block_tridiag_lanes
     from pythonic_disort_torch.ops.cuda_blocktri import (
         solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain)
@@ -563,6 +481,7 @@ def phase_kernels(main_ops):
     from pythonic_disort_torch.ops.jacobi import _round_robin_schedule, default_sweeps, jacobi_eigh_lanes_plain
     from pythonic_disort_torch.tools.check_blocktri import random_blocks
     from pythonic_disort_torch.tools.check_bvp import spill_bytes
+    from pythonic_disort_torch.tools.check_eig import EIG_TOL, function_operands, plain_K
     from pythonic_disort_torch.tools.check_jacobi import (
         DEFAULT_SWEEP_READINGS, constant_diagonal_matrices, scan_matrices, tied_matrices)
 
@@ -581,8 +500,8 @@ def phase_kernels(main_ops):
     eig_checks(*(x[..., :1000].contiguous() for x in small["eig"]), "eig n=4 B=1000 f32 (ragged)")
     eig_checks(At[..., :4096].double().contiguous(), Bt[..., :4096].double().contiguous(), "eig n=16 B=4096 f64")
     # the 32-thread-per-matrix variant (16 < n <= 32), NQuad = 48
-    eig_checks(*phase_function_operands(24, 3000, 8, torch.float32, "cuda"), "eig n=24 B=3000 f32 (ragged)")
-    eig_checks(*phase_function_operands(24, 500, 9, torch.float64, "cuda"), "eig n=24 B=500 f64 (ragged)")
+    eig_checks(*function_operands(24, 3000, 8, torch.float32, "cuda"), "eig n=24 B=3000 f32 (ragged)")
+    eig_checks(*function_operands(24, 500, 9, torch.float64, "cuda"), "eig n=24 B=500 f64 (ragged)")
 
     ops = main_ops["bvp"]
     bvp_abs, bvp_rel = bvp_checks(ops, f"bvp L={ops[0].shape[0]} 2N={ops[0].shape[1]} B={ops[0].shape[3]} f32")
@@ -597,13 +516,15 @@ def phase_kernels(main_ops):
     shape = lambda o: f"L={o[1].shape[0]} n={o[1].shape[1]} B={o[1].shape[3]}"
     bt_abs, bt_rel = blocktri_checks(bt_main, f"blocktri {shape(bt_main)} f32 (main-path blocks)",
                                      fused_x=solve_bvp_fused(*ops))
-    bt_wide = capture_kernel_inputs(*make_problem(
-        bench_arrays(CHUNK_COLS, seed=11, nquad=48), torch.float32, "cuda", nquad=48))["blocktri"]
+    nquad48 = capture_kernel_inputs(*make_problem(
+        bench_arrays(CHUNK_COLS, seed=11, nquad=48), torch.float32, "cuda", nquad=48))
+    bt_wide = nquad48["blocktri"]
     blocktri_checks(bt_wide, f"blocktri {shape(bt_wide)} f32 (NQuad=48 batched solve)")
     wide64 = capture_kernel_inputs(*make_problem(
         bench_arrays(1, seed=12, nlayers=6, nquad=48), torch.float64, "cuda", nquad=48))["blocktri"]
     blocktri_checks(tuple(o[..., :33].contiguous() for o in wide64), "blocktri L=6 n=48 B=33 f64 (ragged)")
-    with recording(cuda_blocktri, "solve_block_tridiag_lanes_cuda") as rec:
+    with recording(cuda_blocktri, "solve_block_tridiag_lanes_cuda") as rec, \
+            recording(eig_mod, "eig_stage_lanes") as eig_col:
         pydisort(**column_kwargs(), dtype=torch.float32, device="cuda")
     bt_col = rec.operands
     blocktri_checks(bt_col, f"blocktri {shape(bt_col)} f32 (single-column solve)")
@@ -619,7 +540,7 @@ def phase_kernels(main_ops):
     # kernel's 131072-lane reconstruction scan
     M = congruence(At, Bt)
     jac = jacobi_checks(M, f"jacobi n={M.shape[0]} B={M.shape[2]} f32 (main-path congruence M)")
-    jacobi_checks(congruence(*phase_function_operands(24, 3000, 8, torch.float32, "cuda")),
+    jacobi_checks(congruence(*function_operands(24, 3000, 8, torch.float32, "cuda")),
                   "jacobi n=24 B=3000 f32 (ragged)")
     # the congruence in float64 too: a float32 M is symmetric only to float32
     # roundoff, which the reconstruction reading would measure
@@ -658,8 +579,18 @@ def phase_kernels(main_ops):
     jac_ms = cuda_ms(lambda: jacobi_eigh_lanes(M, jac_sweeps), 20)
     jac_plain_ms = cuda_ms(lambda: jacobi_eigh_lanes_plain(M, jac_sweeps), 3)
     esz = At.element_size()
-    eig_bound, eig_by = bound_ms((2 * n * n + 4 * n * n + n) * B * esz,
-                                 eig_flops(n, jacobi_sweeps(At.dtype)) * B, "float32")
+    def eig_bound_ms(n_, B_):
+        return bound_ms((2 * n_ * n_ + 4 * n_ * n_ + n_) * B_ * esz, eig_flops(n_, jacobi_sweeps(At.dtype)) * B_,
+                        "float32")
+
+    eig_bound, eig_by = eig_bound_ms(n, B)
+    # kernel 1 at the single column's lanes and at the NQuad=48 chunk's (n = 24)
+    eig_others = []
+    for what, (a_, b_) in (("single-column solve", eig_col.operands), ("NQuad=48 batched solve", nquad48["eig"])):
+        ms_ = cuda_ms(lambda: eig_stage_lanes(a_, b_), 20)
+        bound_, by_ = eig_bound_ms(a_.shape[0], a_.shape[2])
+        eig_others.append(dict(shape=f"n={a_.shape[0]} B={a_.shape[2]}", operands=what, ms=ms_, bound_ms=bound_,
+                               bound_by=by_))
     L, n2, _, Bb = ops[0].shape
     bvp_ms = cuda_ms(lambda: solve_bvp_fused(*ops), 20)
     bvp_plain_ms = cuda_ms(lambda: solve_bvp_fused_plain(*ops), 2)
@@ -669,7 +600,10 @@ def phase_kernels(main_ops):
     route_ms = cuda_ms(lambda: solve_block_tridiag_lanes_cuda(*assemble_bvp_blocks(*ops[:3]), ops[3]), 20)
     jac_bound, jac_by = bound_ms((2 * n * n + n) * B * esz, jacobi_flops(n, jac_sweeps) * B, "float32")
     log(f"  eig_stage: {eig_ms:.4f} ms (plain {eig_plain_ms:.3f} ms, torch.linalg.eigh on M "
-        f"{eigh_ms:.3f} ms, bound {eig_bound:.4f} ms by {eig_by})")
+        f"{eigh_ms:.3f} ms, bound {eig_bound:.4f} ms by {eig_by}; ptxas spills {spill_bytes('eig_stage')} B)")
+    for o in eig_others:
+        log(f"  eig_stage {o['shape']}, {o['operands']}: {o['ms']:.4f} ms (bound {o['bound_ms']:.4f} ms "
+            f"by {o['bound_by']})")
     log(f"  jacobi_eigh: {jac_ms:.4f} ms (plain {jac_plain_ms:.3f} ms, torch.linalg.eigh on the same M "
         f"{eigh_ms:.3f} ms, bound {jac_bound:.4f} ms by {jac_by}: {(2 * n * n + n) * B * esz / 1e9:.3f} GB, "
         f"{jacobi_flops(n, jac_sweeps) * B:.3e} FLOP)")
@@ -705,7 +639,8 @@ def phase_kernels(main_ops):
              replaces_function="eig_stage_lanes_pallas",
              launches=None, max_abs_err=eig_abs, max_err=eig_rel, ms=eig_ms, plain_ms=eig_plain_ms,
              bound_ms=eig_bound, bound_by=eig_by, library_ms=eigh_ms,
-             library_call=f"torch.linalg.eigh on the (B, 16, 16) M matrices in chunks of {EIGH_CHUNK} (eigh alone, not the stage)"),
+             library_call=f"torch.linalg.eigh on the (B, 16, 16) M matrices in chunks of {EIGH_CHUNK} (eigh alone, not the stage)",
+             other_shapes=eig_others),
         dict(name="bvp_fused", route="cuda", source="pythonic_disort_torch/csrc/bvp_fused.cu",
              replaces="pythonic_disort_tpu/ops/pallas_blocktri.py:382",
              replaces_function="solve_bvp_fused_pallas",

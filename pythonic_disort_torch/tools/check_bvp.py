@@ -70,20 +70,27 @@ def bench_arrays(ncols, seed=42, nlayers=64, nquad=32, nbands=128):
                 mu0=rng.uniform(0.2, 1.0, B), I0=np.full(B, np.pi))
 
 
-def captured_operands(ncols, nlayers, nquad, seed, dtype):
-    """The operands ``solve_fluxes`` hands the fused kernel on a flux-only
-    delta-M beam problem of `bench_arrays` (2N = nquad <= 32), solved up to
-    the BVP in float64 on the CPU (no other kernel is built), as ``dtype``
-    on the card."""
+def bench_problem(ncols, nlayers, nquad, seed):
+    """A flux-only delta-M beam problem of `bench_arrays` (NQuad = nquad),
+    built by ``make_batched_problem`` in float64 on the CPU."""
     import pythonic_disort_torch as pt
-    from ..models.disort import batch_solve
 
     a = bench_arrays(ncols, seed=seed, nlayers=nlayers, nquad=nquad)
     cfg = pt.DisortConfig(
         nquad=nquad, nleg=nquad, nleg_all=nquad + 1, nfourier=1, nlayers=nlayers,
         nscoeffs=0, nbdrf=0, has_beam=True, only_flux=True, has_deltam=True)
-    prob = pt.make_batched_problem(cfg, a["tau"], a["omega"], a["leg"], a["mu0"], a["I0"],
+    return pt.make_batched_problem(cfg, a["tau"], a["omega"], a["leg"], a["mu0"], a["I0"],
                                    f_arr=a["f_arr"], dtype=torch.float64, device="cpu")
+
+
+def captured_operands(ncols, nlayers, nquad, seed, dtype):
+    """The operands ``solve_fluxes`` hands the fused kernel on a
+    `bench_problem` (2N = nquad <= 32), solved up to the BVP in float64 on
+    the CPU (no other kernel is built), as ``dtype`` on the card."""
+    import pythonic_disort_torch as pt
+    from ..models.disort import batch_solve
+
+    prob = bench_problem(ncols, nlayers, nquad, seed)
     seen = []
 
     def record(*ops):

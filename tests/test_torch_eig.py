@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pythonic_disort_tpu.ops.eig import disort_eigh as jax_eigh
@@ -146,3 +147,154 @@ def test_jacobi_sweeps_match_jax_default(dtype, sweeps):
     assert cuda_eig.jacobi_sweeps(dtype) == sweeps
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
     assert default_sweeps(16, jdt) == sweeps
+
+
+# ---------------------------------------------------------------------------
+# csrc/eig_stage.cu's order of operations, modelled in numpy and held to the
+# JAX package's one-sided Jacobi and to LAPACK before the kernel is built.
+
+def _kernel_partners(n, rounds):
+    """Partner of every row in `rounds` consecutive rounds, from the
+    kernel's closed form of the circle method: q = (max(i - 1, 0) + r)
+    mod (n - 1), advanced once a round."""
+    m1 = n - 1
+    q = [max(i - 1, 0) for i in range(n)]
+    out = []
+    for _ in range(rounds):
+        row = [m1 - q[0]]
+        for i in range(1, n):
+            v = m1 - 2 + (i - 1) - 2 * q[i]
+            v = v + m1 if v < 0 else v - m1 if v >= m1 else v
+            row.append(0 if q[i] == m1 - 1 else 1 + v)
+        out.append(row)
+        q = [0 if x + 1 == m1 else x + 1 for x in q]
+    return np.array(out)
+
+
+def _chol_rows_model(a):
+    """The kernel's row Cholesky on (B, n, n) rows: step k reads column k
+    of the trailing matrix, takes one reciprocal of its pivot's square
+    root and updates every row below.  Returns L and 1 / diag(L)."""
+    a = a.copy()
+    B, n, _ = a.shape
+    rows = np.arange(n)[None, :]
+    rdiag = np.empty((B, n))
+    for k in range(n):
+        col = a[:, :, k].copy()
+        d = np.sqrt(col[:, k])
+        r = 1.0 / d
+        w = np.where(rows > k, a[:, :, k] * r[:, None] * r[:, None], 0.0)
+        a[:, :, k + 1:] -= w[:, :, None] * col[:, None, k + 1:]
+        rdiag[:, k] = r
+        a[:, :, k] = np.where(rows > k, a[:, :, k] * r[:, None], np.where(rows == k, d[:, None], 0.0))
+    return a, rdiag
+
+
+def _partial_sums(prod):
+    """Four partial sums over the last axis, entries m = 0, 1, 2, 3 mod 4."""
+    s = [prod[..., q::4].sum(-1) for q in range(4)]
+    return (s[0] + s[1]) + (s[2] + s[3])
+
+
+def _sweeps_model(c, sweeps):
+    """The kernel's one-sided Jacobi on the rows of c (B, n, n): rolled
+    rounds with closed-form partners, the dot in four partial sums, the
+    cosine as rsqrt(1 + t^2) with two Newton steps.  Returns (K^2, Z^T)."""
+    B, n, _ = c.shape
+    w = np.broadcast_to(np.eye(n), c.shape).copy()
+    nrm = (c * c).sum(-1)
+    partners = _kernel_partners(n, n - 1)
+    for _ in range(sweeps):
+        for p in partners:
+            pc = c[:, p, :]
+            offd = _partial_sums(c * pc)
+            theta = (nrm[:, p] - nrm) * 0.5
+            denom = np.abs(theta) + np.sqrt(theta * theta + offd * offd)
+            sgn = np.where(theta >= 0, 1.0, -1.0)
+            t = np.where((np.abs(offd) > 0) & (theta != 0),
+                         sgn * offd / np.where(denom > 0, denom, 1.0), 0.0)
+            x = 1.0 + t * t
+            cth = 1.0 / np.sqrt(x)
+            cth = cth * (1.5 - 0.5 * x * cth * cth)
+            cth = cth * (1.5 - 0.5 * x * cth * cth)
+            sn = t * cth
+            nrm = nrm - t * offd
+            c = cth[..., None] * c - sn[..., None] * pc
+            w = cth[..., None] * w - sn[..., None] * w[:, p, :]
+    return _partial_sums(c * c), w
+
+
+def _stage_model(At, Bt, sweeps):
+    """The kernel's eigen stage on lanes operands (n, n, B); returns
+    (K, V, Yr, Pr, Qr) in the lanes layout and C, the Cholesky factor of M."""
+    A, Bm = -np.moveaxis(At, 2, 0), -np.moveaxis(Bt, 2, 0)
+    L, rd = _chol_rows_model(Bm)
+    M = np.swapaxes(L, 1, 2) @ (A @ L)
+    C, _ = _chol_rows_model(M)
+    k2, w = _sweeps_model(C, sweeps)
+    K = np.sqrt(np.maximum(k2, np.finfo(np.float64).tiny))
+    Z = np.swapaxes(w, 1, 2)
+    LZ = L @ Z
+    V = Z.copy()
+    for j in range(At.shape[0] - 1, -1, -1):
+        V[:, j, :] *= rd[:, j, None]
+        V[:, :j, :] -= L[:, j, :j, None] * V[:, j, None, :]
+    Yr = -LZ * (1.0 / K)[:, None, :]
+    Pr = np.swapaxes(LZ, 1, 2)
+    Qr = -K[:, :, None] * np.swapaxes(V, 1, 2)
+    lanes = lambda x: np.moveaxis(x, 0, -1)
+    return (K.T, *(lanes(x) for x in (V, Yr, Pr, Qr))), C
+
+
+def _stage_operands(n, B, seed):
+    Dp, Dm, mu, w = _kernels(n, B, seed)
+    rho = np.sqrt(w / mu)
+    outer = rho[:, None, None] * rho[None, :, None]
+    inv_mu = np.diag(1 / mu)[:, :, None]
+    return outer * (Dp - Dm) - inv_mu, outer * (Dp + Dm) - inv_mu
+
+
+@pytest.mark.parametrize("n", range(2, 33, 2))
+def test_kernel_closed_form_partners_match_round_robin(n):
+    """Three sweeps of the kernel's partner state give the partner table of
+    `_round_robin_schedule` in every round."""
+    from pythonic_disort_tpu.ops.jacobi import _round_robin_schedule
+
+    p_sched, q_sched = _round_robin_schedule(n)
+    table = np.empty((n - 1, n), dtype=int)
+    for r in range(n - 1):
+        table[r, p_sched[r]], table[r, q_sched[r]] = q_sched[r], p_sched[r]
+    np.testing.assert_array_equal(_kernel_partners(n, 3 * (n - 1)), np.tile(table, (3, 1)))
+
+
+@pytest.mark.parametrize("n", [2, 4, 16, 24, 32])
+def test_kernel_sweep_model_matches_jax_onesided(n):
+    """The kernel's sweeps (model) against `pallas_jacobi.onesided_sweeps`
+    on the same C, float64, 9 sweeps: the same schedule and rotations, so
+    K^2 and Z^T agree entry by entry to roundoff."""
+    from pythonic_disort_tpu.ops.pallas_jacobi import _partner_perms, onesided_sweeps
+
+    At, Bt = _stage_operands(n, 6, seed=40 + n)
+    _, C = _stage_model(At, Bt, 0)
+    k2, w = _sweeps_model(C, 9)
+    # eager: compiling the fori_loop body of 31 unrolled rounds takes a minute
+    with jax.disable_jit():
+        k2_ref, w_ref = onesided_sweeps(jnp.asarray(np.moveaxis(C, 0, -1)), n=n, sweeps=9, perms=_partner_perms(n))
+    k2_ref, w_ref = np.asarray(k2_ref).T, np.moveaxis(np.asarray(w_ref), -1, 0)
+    np.testing.assert_allclose(k2, k2_ref, rtol=1e-10, atol=1e-12 * np.abs(k2_ref).max())
+    np.testing.assert_allclose(w, w_ref, rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("n", [2, 4, 16, 24, 32])
+def test_kernel_stage_model_matches_lapack(n):
+    """The kernel's whole stage (model) against the plain stage (LAPACK
+    eigh) in float64, 9 sweeps, with the order-free readings and float64
+    limits of `tools/check_eig.py`."""
+    from pythonic_disort_torch.tools.check_eig import eig_errors, beyond_limits
+
+    At, Bt = _stage_operands(n, 12, seed=60 + n)
+    outs, _ = _stage_model(At, Bt, cuda_eig.jacobi_sweeps(torch.float64))
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64)
+    Kp = cuda_eig.eig_stage_lanes_plain(t(At), t(Bt))[0]
+    e = eig_errors(t(At), t(Bt), tuple(t(x) for x in outs), Kp)
+    assert not beyond_limits(e, torch.float64), e
