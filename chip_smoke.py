@@ -23,7 +23,8 @@ solves, and drives both paths of the port:
   NQuad = 2, 6 and 30 (odd N) and 68 and 128 (N > 32, 2N > 64), a batched
   NQuad=68 chunk and an NQuad=68 column gradient, which go through the
   wide Jacobi kernel (5) and the wide block-Thomas kernel (6), against the
-  port's float64 CPU result.
+  port's float64 CPU result; the NQuad = 68 and 128 calls, the chunk and
+  the gradient are traced by kernel name.
 
 Every failed check raises, so the exit code is nonzero.  Its last two
 lines are a JSON line of per-kernel numbers and ``{"ok": true, "device":
@@ -273,11 +274,14 @@ def jacobi_flops(n, sweeps):
 def blocktri_flops(L, n):
     """Operations of the generic block-Thomas solve per lane, as the
     algorithm needs them: the layer correction [D | r] - Low [W | g]
-    (L-1 layers, 2n^2(n+1)), the Gauss-Jordan elimination of the
-    n x (2n+1) system with the columns behind the pivot skipped
-    (L layers, 2n sum_k (2n+1-k) = 3n^2(n+1)) and the back substitution
-    (L-1 layers, 2n^2)."""
-    return (L - 1) * 2 * n * n * (n + 1) + L * 3 * n * n * (n + 1) + (L - 1) * 2 * n * n
+    (L-1 layers, 2n^2(n+1)); the Gauss-Jordan elimination, whose step k
+    updates the n-1 rows other than the pivot row in the columns right of
+    k, over n x (2n+1) in the first L-1 layers (2(n-1) sum_k (2n-k) =
+    (n-1)(3n^2+n) each) and over [dhat | rhat] alone, n x (n+1), in the
+    last (2(n-1) sum_k (n-k) = (n-1)n(n+1)); and the back substitution
+    (L-1 layers, 2n^2).  A layer's O(n^2) multipliers, reciprocals and
+    scalings are not counted."""
+    return (L - 1) * (2 * n * n * (n + 1) + (n - 1) * (3 * n * n + n) + 2 * n * n) + (n - 1) * n * (n + 1)
 
 
 # ------------------------------------------------------------ eigen checks
@@ -669,6 +673,10 @@ WIDE_JACOBI_N = (1, 3, 17, 31, 33, 34, 64, 128)
 WIDE_BLOCKTRI = [(64, 68, 33, "float32"), (3, 66, 5, "float32"), (3, 66, 7, "float64"), (2, 68, 9, "float64"),
                  (4, 128, 7, "float32"), (3, 128, 3, "float64"), (2, 136, 5, "float32"), (2, 136, 3, "float64"),
                  (2, 256, 3, "float32"), (2, 256, 2, "float64")]
+# kernel 6 at the columns' shapes of phase 7 (NQuad=68, 16 layers, 68
+# Fourier modes; NQuad=128, 8 layers, 16 modes), float32: checked in phase
+# 3 like WIDE_BLOCKTRI and timed there
+WIDE_COLUMN_BLOCKTRI = [("NQuad=68 column", 16, 68, 68), ("NQuad=128 column", 8, 128, 16)]
 # the batched NQuad=68 chunk of phases 3 and 7: 2 columns x 128 bands, 64 layers
 WIDE_NQUAD, WIDE_COLS, WIDE_SEED = 68, 2, 21
 
@@ -717,6 +725,7 @@ def phase_wide_kernels():
     from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes_wide
     from pythonic_disort_torch.ops.jacobi import default_sweeps, jacobi_eigh_lanes_plain
     from pythonic_disort_torch.tools.check_blocktri import random_blocks
+    from pythonic_disort_torch.tools.check_bvp import ptxas_entries
     from pythonic_disort_torch.tools.check_jacobi import scan_matrices
 
     log("phase 3: kernels 5 and 6 against their plain versions")
@@ -740,7 +749,7 @@ def phase_wide_kernels():
     blocks = ops["blocktri"]
     shape = lambda o: f"L={o[1].shape[0]} n={o[1].shape[1]} B={o[1].shape[3]}"
     bt_abs, bt_rel = blocktri_checks(blocks, f"blocktri_wide {shape(blocks)} f32 (batched NQuad={WIDE_NQUAD} chunk)")
-    for L_, n_, B_, name in WIDE_BLOCKTRI:
+    for L_, n_, B_, name in WIDE_BLOCKTRI + [(L_, n_, B_, "float32") for _, L_, n_, B_ in WIDE_COLUMN_BLOCKTRI]:
         o = random_blocks(L_, n_, B_, 100 * L_ + n_, dt[name])
         label = f"blocktri_wide L={L_} n={n_} B={B_} {name} (dense, NaN edge blocks)"
         blocktri_checks(o, label)
@@ -771,6 +780,17 @@ def phase_wide_kernels():
     log(f"  blocktri_wide {shape(blocks)}: {bt_ms:.4f} ms (plain {bt_plain_ms:.3f} ms, bound {bt_bound:.4f} ms by "
         f"{bt_by}: {nbytes / 1e9:.3f} GB in and out, {blocktri_flops(L, nb) * Bb:.3e} FLOP; scratch stack written "
         f"and read {scratch / 1e9:.3f} GB)")
+    columns = {}
+    for label, L_, n_, B_ in WIDE_COLUMN_BLOCKTRI:
+        o = random_blocks(L_, n_, B_, 100 * L_ + n_, torch.float32)
+        ms = cuda_ms(lambda: solve_block_tridiag_lanes_wide(*o), 5)
+        cb = (sum(x.numel() for x in o) - 2 * n_ * n_ * B_ + o[3].numel()) * esz
+        bound, by = bound_ms(cb, blocktri_flops(L_, n_) * B_, "float32")
+        columns[label] = dict(ms=ms, bound_ms=bound, bound_by=by, shape=f"L={L_} n={n_} B={B_}")
+        log(f"  blocktri_wide L={L_} n={n_} B={B_} ({label}'s blocks, random dense): {ms:.4f} ms "
+            f"(bound {bound:.4f} ms by {by})")
+    ptxas = {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
+             for args, regs, stack, st, ld, _ in ptxas_entries("blocktri_wide")}
     return [
         dict(name="jacobi_eigh_wide", route="cuda", source="pythonic_disort_torch/csrc/jacobi_eigh_wide.cu",
              replaces="pythonic_disort_tpu/ops/pallas_jacobi.py:244",
@@ -784,7 +804,8 @@ def phase_wide_kernels():
              replaces_function="solve_block_tridiag_lanes_pallas, at the n > 64 where the JAX package runs jnp",
              launches=None, max_abs_err=bt_abs, max_err=bt_rel, ms=bt_ms, plain_ms=bt_plain_ms,
              bound_ms=bt_bound, bound_by=bt_by, library_ms=None, library_call=None,
-             timed_at=f"{shape(blocks)} float32, the blocks of the batched NQuad={WIDE_NQUAD} chunk"),
+             timed_at=f"{shape(blocks)} float32, the blocks of the batched NQuad={WIDE_NQUAD} chunk",
+             ms_columns=columns, ptxas=ptxas),
     ]
 
 
@@ -1226,6 +1247,9 @@ def phase_widths(kernels):
             times.append(1e3 * (time.perf_counter() - t0))
         log(f"  {label}: host-clock ms per pydisort call (solve and one flux_up): first {times[0]:.3f}, "
             f"then {', '.join(f'{t:.3f}' for t in times[1:])}")
+        if wide:
+            phase_trace(lambda: pydisort(**kwargs, **f32)[1](tau[-1]), f"phase 7, one pydisort call at {label}",
+                        min(times[1:]))
     by_name["jacobi_eigh_wide"]["launches_pydisort"] = {q: c["jacobi_eigh_wide"] for q, c in per_call.items()}
     by_name["blocktri_wide"]["launches_pydisort"] = {q: c["blocktri_wide"] for q, c in per_call.items()}
 
@@ -1261,6 +1285,9 @@ def phase_widths(kernels):
     log(f"  NQuad={WIDE_NQUAD} chunk: {chunk_ms:.3f} ms (best of {REPS}: {', '.join(f'{t:.3f}' for t in times)}), "
         f"{WIDE_COLS / chunk_ms * 1e3:.3f} columns/s; kernel 5 {by_name['jacobi_eigh_wide']['ms']:.3f} ms x "
         f"{launches['jacobi_eigh_wide']}, kernel 6 {by_name['blocktri_wide']['ms']:.3f} ms x {launches['blocktri_wide']}")
+    # the chunk's time by device operation: the kernels and the plain
+    # tensor code around them
+    phase_trace(lambda: solve_fluxes(problem, ptau), f"phase 7, one batched NQuad={WIDE_NQUAD} chunk", chunk_ms)
 
     for nquad in ODD_BATCHED:
         arrs = bench_arrays(1, seed=WIDE_SEED + nquad, nquad=nquad)
@@ -1308,6 +1335,8 @@ def phase_widths(kernels):
     for name in ("jacobi_eigh_wide", "blocktri_wide"):
         by_name[name]["launches_column_gradient"] = launches[name]
     within_grad(gc, column_gradient(torch.float64, "cpu", **col), 2e-3, f"float32 NQuad={WIDE_NQUAD} column gradient")
+    phase_trace(lambda: column_gradient(torch.float32, "cuda", **col), f"phase 7, the NQuad={WIDE_NQUAD} column gradient",
+                grad_ms)
 
 
 def main():

@@ -12,24 +12,55 @@ float64, both in shared memory and in the device workspace; runs
 ``torch.linalg.cholesky_ex`` and ``solve_triangular`` at the batched
 NQuad=68 chunk's lane count; solves ``pydisort`` at NQuad = 2, 6 and 68
 in float32 against the port's float64 CPU result; times each kernel at
-one shape with CUDA events.  Exits nonzero if a check fails.
-`chip_smoke.py` at the repository root is the full run.
+one shape with CUDA events: kernel 5 at the batched NQuad=68 chunk's M,
+kernel 6 through its C entry point (outputs allocated once) at the
+shapes of `BT_TIMED` (the chunk's blocks, L=64, n=68, B=256, and the
+columns', L=16, n=68, B=68 at NQuad=68 and L=8, n=128, B=16 at
+NQuad=128, float32; then float64, an odd n and 68 < n < 128) and on
+the two sets of blocks of a 64-layer NQuad=68 column gradient.  Exits
+nonzero if a check fails.  `chip_smoke.py` at the repository root is the
+full run.
+
+    python3 -m pythonic_disort_torch.tools.check_wide --source OTHER.cu ... --split BASE.cu ...
+
+The A/B loop for kernel 6.  ``--source`` builds each named version of
+``blocktri_wide.cu`` (the same C interface; an earlier commit's via
+``git show <rev>:pythonic_disort_torch/csrc/blocktri_wide.cu``), holds
+it to the plain version at the chunk shape in both types and times it
+beside the kernel.
+``--split`` makes, from each named base source, one copy per entry of
+`SPLIT_EDITS` of the base's kind (a stage skipped or its loads made
+cache hits, so its results are wrong and not checked; an edit whose text
+the base lacks stops the tool), builds them
+under ``build/`` and times them too: the time a stage takes is the
+base's time less the copy's.  Every version is built in parallel with
+its own nvcc, its ptxas registers and spills are printed, and all are
+timed in turns (versions, then the same in reverse order) in one
+process.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import hashlib
+import itertools
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..ops import _build
 from ..ops.blocktri import solve_block_tridiag_lanes
+from ..ops.cuda_blocktri import _wide_kernel
 from ..ops.cuda_blocktri import launch_wide as blocktri_wide
 from ..ops.cuda_jacobi import launch_wide as jacobi_wide
 from ..ops.jacobi import default_sweeps
 from .check_blocktri import random_blocks
+from .check_bvp import _PTXAS, ptxas_entries
 from .check_jacobi import LIMITS, check_readings, cuda_ms, readings, scan_matrices
 
 
@@ -45,29 +76,219 @@ def wide_limits(n, dtype):
 
 
 JACOBI = [(1, 5), (2, 7), (3, 33), (17, 100), (31, 9), (33, 40), (34, 65), (64, 17), (128, 3)]
-BLOCKTRI = [(1, 1, 4), (3, 5, 6), (3, 66, 5), (2, 68, 3), (8, 68, 9), (2, 128, 3), (2, 136, 2), (2, 256, 2)]
+BLOCKTRI = [(1, 1, 4), (3, 5, 6), (3, 66, 5), (2, 68, 3), (8, 68, 9), (2, 68, 1), (3, 67, 5), (2, 99, 3),
+            (2, 128, 3), (2, 136, 2), (2, 256, 2)]
 BT_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
+# kernel 6's timed shapes on random dense blocks: (label, L, n, B, dtype).
+# The NQuad=68 chunk's blocks and the columns' of NQuad = 68 and 128 in
+# float32, then the other routes of the register tile: the chunk and the
+# NQuad=68 column in float64, an odd n, and 68 < n < 128 in float32.
+BT_TIMED = [("NQuad=68 chunk", 64, 68, 256, torch.float32), ("NQuad=68 column", 16, 68, 68, torch.float32),
+            ("NQuad=128 column", 8, 128, 16, torch.float32), ("NQuad=68 chunk", 64, 68, 256, torch.float64),
+            ("NQuad=68 column", 16, 68, 68, torch.float64), ("odd n", 64, 67, 256, torch.float32),
+            ("n = 69", 64, 69, 256, torch.float32), ("n = 99", 64, 99, 256, torch.float32),
+            ("n = 99, few lanes", 16, 99, 16, torch.float32)]
+
+# The --split copies: name -> (text, replacement) pairs, each applied to a
+# base source that holds every text once.  "tile" edits the register tile;
+# "general" edits the file of commit 768065d, before the register tile
+# (its entries reproduce that kernel's stage split).  A base with a
+# register tile takes the "tile" entries, any other the "general" ones.
+_PRE_TILE_CORRECTION = [("    if (l > 0) {\n      // [dhat | rhat]", "    if (false) {\n      // [dhat | rhat]")]
+_PRE_TILE_ELIMINATION = [
+    ("for (int k = 0; k < n; ++k) {\n      __syncthreads();", "for (int k = 0; k < 0; ++k) {\n      __syncthreads();"),
+    ("var[i] = -1;", "var[i] = i;\n      rcp[i] = T(1);")]
+SPLIT_EDITS = {
+    "general: no correction": _PRE_TILE_CORRECTION,
+    "general: staging loads hit the cache": [
+        ("diag[l * blk + (size_t)idx * B + b]", "diag[idx]"),
+        ("lower[l * blk + (size_t)idx * B + b]", "lower[blk + idx]"),
+        ("upper[l * blk + (size_t)idx * B + b]", "upper[idx]"),
+        ("rhs[l * vec + (size_t)i * B + b]", "rhs[i]")],
+    "general: no elimination": _PRE_TILE_ELIMINATION,
+    "general: no back substitution": [("for (int l = L - 2; l >= 0; --l) {\n    __syncthreads();",
+                                       "for (int l = -1; l >= 0; --l) {\n    __syncthreads();")],
+    "general: staging, copy-out and back substitution alone": _PRE_TILE_CORRECTION + _PRE_TILE_ELIMINATION,
+    "tile: no correction": [("    if (l > 0 && (c < n || rhs_col)) {", "    if (false) {"),
+                            ("    if (l > 0) {\n      // P = Low", "    if (false) {\n      // P = Low")],
+    "tile: staging loads hit the cache": [
+        ("if (tid == nmat * n) return Stager{rhs + vec(l) + b, sR, B, 1};",
+         "if (tid == nmat * n) return Stager{rhs, sR, 0, 1};"),
+        ("const T* src = (is_low ? lower : is_d ? diag : upper) + blk(l) + (size_t)j * B + b;",
+         "const T* src = (is_low ? lower : is_d ? diag : upper) + (size_t)n * n + j;"),
+        ("(tid == nmat_next * n ? B : n * B)", "(tid == nmat_next * n ? 0 : n)"),
+        ("return Stager{src, sL + j * LS, n * B, 1};", "return Stager{src, sL + j * LS, n, 1};"),
+        ("return Stager{src, (is_d ? sD : sU) + j, n * B, LS};", "return Stager{src, (is_d ? sD : sU) + j, n, LS};"),
+        ("(c < n ? diag + (size_t)c * B : upper + (size_t)(c - n) * B) + blk(l) + (size_t)i0 * n * B + b;",
+         "(c < n ? diag + c : upper + (c - n)) + (size_t)i0 * n;"),
+        ("++m, g += (size_t)n * B)", "++m, g += n)")],
+    "tile: one elimination step a layer": [
+        ("for (int k = 0; k < n; ++k) {\n      T* f = sF", "for (int k = 0; k < 1; ++k) {\n      T* f = sF"),
+        ("sW[var[i0 + m] * WS + (c - n)]", "sW[(i0 + m) * WS + (c - n)]"),
+        ("sW[var[i] * WS + n] = sH[i] * rcp[i];", "sW[i * WS + n] = sH[i] * rcp[i];"),
+        ("      if (next.src) {\n", "      stage(next, 0, k == 0 ? n : 0);\n      if (false) {\n")],
+    "tile: no back substitution": [("for (int l = L - 2; l >= 0; --l) {\n    copy_async_wait();",
+                                    "for (int l = -1; l >= 0; --l) {\n    copy_async_wait();")],
+}
 
 
-def blocktri_rel(ops, **kw):
-    x = blocktri_wide(*ops, **kw)
+def lane_rel(x, ops):
+    """Largest per-lane error of kernel 6's x against the float64 plain
+    solve on the same blocks (NaN edge blocks zeroed for it)."""
     torch.cuda.synchronize()
     ref = solve_block_tridiag_lanes(*(o.double().nan_to_num(0.0) for o in ops))
     rel = ((x.double() - ref).abs().amax(dim=(0, 1)) / ref.abs().amax(dim=(0, 1))).max().item()
     return rel if bool(torch.isfinite(x).all()) else float("inf")
 
 
-def main():
+def blocktri_rel(ops, **kw):
+    return lane_rel(blocktri_wide(*ops, **kw), ops)
+
+
+def split_copies(bases):
+    """(label, text) of each `SPLIT_EDITS` copy of a base's kind; raises if
+    an edit's text is not in the base exactly once."""
+    copies = []
+    for base in bases:
+        text = Path(base).read_text()
+        body = "tile: " if "blocktri_wide_tile_kernel" in text else "general: "
+        for name, edits in SPLIT_EDITS.items():
+            if not name.startswith(body):
+                continue
+            out = text
+            for old, new in edits:
+                if text.count(old) != 1:
+                    raise ValueError(f"--split {base}, {name!r}: {text.count(old)} matches (1 expected) of\n{old}")
+                out = out.replace(old, new)
+            copies.append((f"{Path(base).name}, {name}", out))
+    return copies
+
+
+def start_builds(versions):
+    """Start one nvcc for each (label, source text) with the kernels' flags;
+    returns a function that waits for them and gives (label, entry points
+    by dtype, ptxas entries) of each."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for label, text in versions:
+        digest = hashlib.sha256(text.encode() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
+        src = _build.BUILD_DIR / f"other-blocktri_wide-{digest}.cu"
+        src.write_text(text)
+        out = src.with_suffix(".so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.REPORT_FLAGS, "-o", str(out), str(src)]
+        jobs.append((label, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+
+    def finish():
+        built = []
+        for label, out, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {label}:\n{log}")
+            lib = ctypes.CDLL(str(out))
+            fns = {}
+            for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
+                fn = getattr(lib, f"blocktri_wide_{suffix}")
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                fns[dtype] = fn
+            entries = [(a, int(r), int(sk), int(st), int(ld)) for a, sk, st, ld, r, _ in _PTXAS.findall(log)]
+            built.append((label, fns, entries))
+        return built
+    return finish
+
+
+def print_ptxas(label, entries):
+    for args, regs, stack, st, ld in entries:
+        print(f"  ptxas {label} <{args}>: {regs} registers, stack {stack} B, spill stores {st} B, "
+              f"spill loads {ld} B", flush=True)
+
+
+def entry_rel(fn, ops):
+    """`lane_rel` of an entry point of another build, its outputs
+    allocated here."""
+    L, n, _, B = ops[1].shape
+    WG = torch.empty((B, L, n, n + 1), dtype=ops[1].dtype, device="cuda")
+    x = torch.empty_like(ops[3])
+    err = fn(*(t.data_ptr() for t in (*ops, WG, x)), None, L, n, B, torch.cuda.current_stream().cuda_stream)
+    return float("inf") if err else lane_rel(x, ops)
+
+
+def gradient_operands(nquad=68, nlayers=64):
+    """Kernel 6's operands in d sum(flux_up) / d omega of one 64-layer
+    NQuad=68 column, flux only, float32 (the column gradient of
+    `chip_smoke.py` phase 7: column 0, band 0 of the bench generator): the
+    forward solve's and the transposed solve's, as (label, ops)."""
+    import pythonic_disort_torch as pt
+
+    from ..models.disort import eval as ev
+    from ..ops import cuda_blocktri
+    from .check_bvp import bench_arrays
+
+    a = bench_arrays(1, nlayers=nlayers, nquad=nquad, nbands=128)
+    kwargs = dict(tau_arr=a["tau"][0], omega_arr=a["omega"][0], NQuad=nquad, Leg_coeffs_all=a["leg"][0],
+                  mu0=float(a["mu0"][0]), I0=float(a["I0"][0]), phi0=1.0, f_arr=a["f_arr"][0])
+    seen = []
+    launch = cuda_blocktri.launch_wide
+
+    def record(*ops, **kw):
+        seen.append([o.detach().clone(memory_format=torch.contiguous_format) for o in ops])
+        return launch(*ops, **kw)
+
+    cuda_blocktri.launch_wide = record
+    try:
+        _, prob = pt.build_problem(**kwargs, only_flux=True, dtype=torch.float32, device="cuda")
+        prob.omega_arr = prob.omega_arr.clone().requires_grad_()
+        tau = torch.linspace(0.0, float(kwargs["tau_arr"][-1]), 8, dtype=torch.float32, device="cuda")
+        torch.autograd.grad(ev.flux_up(pt.solve(prob), tau).sum(), prob.omega_arr)
+        torch.cuda.synchronize()
+    finally:
+        cuda_blocktri.launch_wide = launch
+    return [(f"NQuad={nquad} column gradient, {what} solve", ops) for what, ops in zip(("forward", "transposed"), seen)]
+
+
+def time_versions(versions, cases, reps=5):
+    """Each entry point of ``versions`` (label, entry points by dtype) on
+    the operands of each case (label, ops), in turns: versions, then the
+    same in reverse order; outputs allocated once per case."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, ops in cases:
+        L, n, _, B = ops[1].shape
+        dtype = ops[1].dtype
+        WG = torch.empty((B, L, n, n + 1), dtype=dtype, device="cuda")
+        x = torch.empty_like(ops[3])
+        ptrs = [t.data_ptr() for t in (*ops, WG, x)]
+        times = {}
+        for name, fns in versions + versions[::-1]:
+            call = lambda: fns[dtype](*ptrs, None, L, n, B, stream)
+            if call():
+                raise RuntimeError(f"{name}: launch failed at L={L} n={n} B={B}")
+            times.setdefault(name, []).append(cuda_ms(call, reps))
+        print(f"time blocktri_wide {label} L={L} n={n} B={B} {str(dtype)[6:]} (C entry, ms):", flush=True)
+        for name, ts in times.items():
+            print(f"    {' '.join(f'{t:.4f}' for t in ts)}  {name}", flush=True)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Build, check and time the wide kernels on one GPU.")
+    parser.add_argument("--source", nargs="*", default=[], help="other versions of blocktri_wide.cu to time")
+    parser.add_argument("--split", nargs="*", default=[], help="base sources of the SPLIT_EDITS copies")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("check_wide: CUDA is not available", file=sys.stderr)
         return 2
     names = ["jacobi_eigh_wide", "blocktri_wide", "blocktri"]
     t0 = time.perf_counter()
+    others = [(path, Path(path).read_text()) for path in args.source]
+    copies = split_copies(args.split)
+    pending = start_builds(others + copies)
     _build.build(names)
-    print(f"built {names} in {time.perf_counter() - t0:.1f} s on {torch.cuda.get_device_name(0)}", flush=True)
+    built = pending()
+    print(f"built {names} and {len(built)} other versions in {time.perf_counter() - t0:.1f} s on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
     for name in names[:2]:
-        report = _build._target(name).with_suffix(".log").read_text()
-        print("\n".join(line for line in report.splitlines() if "registers" in line or "spill" in line), flush=True)
+        print_ptxas(name, [(a, r, sk, st, ld) for a, r, sk, st, ld, _ in ptxas_entries(name)])
+    for label, _, entries in built:
+        print_ptxas(label, entries)
     failed = 0
     for n, B in JACOBI:
         for dtype in (torch.float32, torch.float64):
@@ -124,7 +345,20 @@ def main():
     print(f"  jacobi_wide n=34 B=16384 float32: {ms:.4f} ms", flush=True)
     ops = random_blocks(64, 68, 256, 1, torch.float32)
     ms = cuda_ms(lambda: blocktri_wide(*ops), 3)
-    print(f"  blocktri_wide L=64 n=68 B=256 float32: {ms:.4f} ms", flush=True)
+    print(f"  blocktri_wide L=64 n=68 B=256 float32 through launch_wide: {ms:.4f} ms", flush=True)
+    ops64 = random_blocks(64, 68, 256, 1, torch.float64)
+    for label, fns, _ in built[:len(others)]:
+        for o in (ops, ops64):
+            rel = entry_rel(fns[o[1].dtype], o)
+            ok = rel < BT_TOL[o[1].dtype]
+            failed += not ok
+            print(f"  {label} L=64 n=68 B=256 {str(o[1].dtype)[6:]}: per-lane rel {rel:.3e} "
+                  f"{'ok' if ok else 'FAILED'}", flush=True)
+    del ops64
+    cases = itertools.chain(((label, random_blocks(L, n, B, 1, dtype)) for label, L, n, B, dtype in BT_TIMED),
+                            gradient_operands())
+    tree = {dtype: _wide_kernel(dtype)[0] for dtype in (torch.float32, torch.float64)}
+    time_versions([("blocktri_wide.cu", tree)] + [(lb, fns) for lb, fns, _ in built], cases)
     print(f"{failed} checks failed")
     return 1 if failed else 0
 
