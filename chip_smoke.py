@@ -727,6 +727,7 @@ def phase_wide_kernels():
     from pythonic_disort_torch.tools.check_blocktri import random_blocks
     from pythonic_disort_torch.tools.check_bvp import ptxas_entries
     from pythonic_disort_torch.tools.check_jacobi import scan_matrices
+    from pythonic_disort_torch.tools.check_wide import JACOBI_TIMED
 
     log("phase 3: kernels 5 and 6 against their plain versions")
     dt = {"float32": torch.float32, "float64": torch.float64}
@@ -771,6 +772,18 @@ def phase_wide_kernels():
     log(f"  jacobi_eigh_wide n={n} B={B}: {jac_ms:.4f} ms (plain {jac_plain_ms:.3f} ms, torch.linalg.eigh on the "
         f"same M {eigh_ms:.3f} ms, bound {jac_bound:.4f} ms by {jac_by}: {(2 * n * n + n) * B * esz / 1e9:.3f} GB, "
         f"{jacobi_flops(n, sweeps) * B:.3e} FLOP)")
+    # kernel 5 at the other shapes of tools.check_wide.JACOBI_TIMED: the
+    # columns' lanes, float64 and an odd n, on random symmetric matrices
+    jac_shapes = {}
+    for label, n_, B_, dt_ in JACOBI_TIMED[1:]:
+        Mx = scan_matrices(n_, B_, 1, dt_)
+        sw = default_sweeps(n_, dt_)
+        ms = cuda_ms(lambda: jacobi_eigh_lanes_wide(Mx, sw), 5)
+        name = str(dt_).removeprefix("torch.")
+        bound, by = bound_ms((2 * n_ * n_ + n_) * B_ * Mx.element_size(), jacobi_flops(n_, sw) * B_, name)
+        jac_shapes[f"{label}, n={n_} B={B_} {name}"] = dict(ms=ms, bound_ms=bound, bound_by=by)
+        log(f"  jacobi_eigh_wide n={n_} B={B_} {name} ({label}, random symmetric): {ms:.4f} ms "
+            f"(bound {bound:.4f} ms by {by})")
     L, nb, _, Bb = blocks[1].shape
     nbytes = (sum(x.numel() for x in blocks) - 2 * nb * nb * Bb + blocks[3].numel()) * esz
     bt_bound, bt_by = bound_ms(nbytes, blocktri_flops(L, nb) * Bb, "float32")
@@ -789,8 +802,9 @@ def phase_wide_kernels():
         columns[label] = dict(ms=ms, bound_ms=bound, bound_by=by, shape=f"L={L_} n={n_} B={B_}")
         log(f"  blocktri_wide L={L_} n={n_} B={B_} ({label}'s blocks, random dense): {ms:.4f} ms "
             f"(bound {bound:.4f} ms by {by})")
-    ptxas = {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
-             for args, regs, stack, st, ld, _ in ptxas_entries("blocktri_wide")}
+    ptxas = {name: {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
+                    for args, regs, stack, st, ld, _ in ptxas_entries(name)}
+             for name in ("jacobi_eigh_wide", "blocktri_wide")}
     return [
         dict(name="jacobi_eigh_wide", route="cuda", source="pythonic_disort_torch/csrc/jacobi_eigh_wide.cu",
              replaces="pythonic_disort_tpu/ops/pallas_jacobi.py:244",
@@ -798,14 +812,15 @@ def phase_wide_kernels():
              launches=None, max_abs_err=jac["w_abs"], max_err=jac["w"], ms=jac_ms, plain_ms=jac_plain_ms,
              bound_ms=jac_bound, bound_by=jac_by, library_ms=eigh_ms,
              library_call=f"torch.linalg.eigh on the same (B, {n}, {n}) M in chunks of {EIGH_CHUNK}",
-             timed_at=f"n={n} B={B} float32, the congruence M of the batched NQuad={WIDE_NQUAD} chunk"),
+             timed_at=f"n={n} B={B} float32, the congruence M of the batched NQuad={WIDE_NQUAD} chunk",
+             ms_shapes=jac_shapes, ptxas=ptxas["jacobi_eigh_wide"]),
         dict(name="blocktri_wide", route="cuda", source="pythonic_disort_torch/csrc/blocktri_wide.cu",
              replaces="pythonic_disort_tpu/ops/pallas_blocktri.py:553",
              replaces_function="solve_block_tridiag_lanes_pallas, at the n > 64 where the JAX package runs jnp",
              launches=None, max_abs_err=bt_abs, max_err=bt_rel, ms=bt_ms, plain_ms=bt_plain_ms,
              bound_ms=bt_bound, bound_by=bt_by, library_ms=None, library_call=None,
              timed_at=f"{shape(blocks)} float32, the blocks of the batched NQuad={WIDE_NQUAD} chunk",
-             ms_columns=columns, ptxas=ptxas),
+             ms_columns=columns, ptxas=ptxas["blocktri_wide"]),
     ]
 
 

@@ -87,7 +87,8 @@ def slot_table(n: int, device) -> torch.Tensor:
     """The round-robin schedule of ``jacobi._round_robin_schedule`` as the
     wide kernel's slot table: (rounds, (n+1)/2, 2) int32 on ``device``,
     each slot a pair (p, q), and for odd n one slot (idle row, -1) per
-    round.  Cached per (n, device)."""
+    round.  Read by the kernel's general body; its register body computes
+    the same schedule in closed form.  Cached per (n, device)."""
     from .jacobi import _round_robin_schedule
 
     key = (n, str(device))

@@ -11,15 +11,28 @@ plain version on random dense blocks with NaN edge blocks, in float32 and
 float64, both in shared memory and in the device workspace; runs
 ``torch.linalg.cholesky_ex`` and ``solve_triangular`` at the batched
 NQuad=68 chunk's lane count; solves ``pydisort`` at NQuad = 2, 6 and 68
-in float32 against the port's float64 CPU result; times each kernel at
-one shape with CUDA events: kernel 5 at the batched NQuad=68 chunk's M,
-kernel 6 through its C entry point (outputs allocated once) at the
+in float32 against the port's float64 CPU result; times the kernels with
+CUDA events through their C entry points (outputs allocated once):
+kernel 5 at the shapes of `JACOBI_TIMED` (the batched NQuad=68 chunk's
+M, n=34, B=16384, in float32 and float64; the lanes of the NQuad = 68,
+128 and 30 columns; an odd n at the chunk's lane count), kernel 6 at the
 shapes of `BT_TIMED` (the chunk's blocks, L=64, n=68, B=256, and the
 columns', L=16, n=68, B=68 at NQuad=68 and L=8, n=128, B=16 at
 NQuad=128, float32; then float64, an odd n and 68 < n < 128) and on
 the two sets of blocks of a 64-layer NQuad=68 column gradient.  Exits
 nonzero if a check fails.  `chip_smoke.py` at the repository root is the
 full run.
+
+    python3 -m pythonic_disort_torch.tools.check_wide --jacobi-source OTHER.cu ...
+
+The A/B loop for kernel 5: builds each named version of
+``jacobi_eigh_wide.cu`` (the same C interface; an earlier commit's via
+``git show <rev>:pythonic_disort_torch/csrc/jacobi_eigh_wide.cu``) in
+parallel with the tree's, prints its ptxas registers and spills, holds it
+to the float64 eigenvalues and the orthogonality and reconstruction
+readings under `wide_limits` at every shape of `JACOBI`, and times all
+versions in turns at `JACOBI_TIMED`; kernel 6 is then checked but not
+timed, unless ``--source`` or ``--split`` is given too.
 
     python3 -m pythonic_disort_torch.tools.check_wide --source OTHER.cu ... --split BASE.cu ...
 
@@ -58,10 +71,12 @@ from ..ops.blocktri import solve_block_tridiag_lanes
 from ..ops.cuda_blocktri import _wide_kernel
 from ..ops.cuda_blocktri import launch_wide as blocktri_wide
 from ..ops.cuda_jacobi import launch_wide as jacobi_wide
+from ..ops.cuda_jacobi import _wide_kernel as _jacobi_kernel
+from ..ops.cuda_jacobi import slot_table
 from ..ops.jacobi import default_sweeps
 from .check_blocktri import random_blocks
 from .check_bvp import _PTXAS, ptxas_entries
-from .check_jacobi import LIMITS, check_readings, cuda_ms, readings, scan_matrices
+from .check_jacobi import LIMITS, check_readings, cuda_ms, eigvalsh64, readings, scan_matrices
 
 
 def wide_limits(n, dtype):
@@ -75,10 +90,21 @@ def wide_limits(n, dtype):
     return {k: v * max(1.0, n / 32) for k, v in LIMITS[dtype].items()}
 
 
-JACOBI = [(1, 5), (2, 7), (3, 33), (17, 100), (31, 9), (33, 40), (34, 65), (64, 17), (128, 3)]
+# kernel 5's checked shapes (n, B): every variant of the register body at a
+# ragged B, with one block's worth of lanes and with enough for its wide
+# blocks (15 at 8500, 34 and 64 at 2201), and the general body at 128
+JACOBI = [(1, 5), (2, 7), (3, 33), (15, 8500), (17, 100), (31, 9), (33, 40), (34, 65), (34, 2201), (64, 17),
+          (64, 2201), (128, 3)]
 BLOCKTRI = [(1, 1, 4), (3, 5, 6), (3, 66, 5), (2, 68, 3), (8, 68, 9), (2, 68, 1), (3, 67, 5), (2, 99, 3),
             (2, 128, 3), (2, 136, 2), (2, 256, 2)]
 BT_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
+# kernel 5's timed shapes on the random matrices of `scan_matrices`:
+# (label, n, B, dtype).  The batched NQuad=68 chunk's M in both types, the
+# lanes of the pydisort columns at NQuad = 68 (16 layers x 68 modes), 128
+# (8 x 16) and 30 (64 x 30), and an odd n at the chunk's lane count.
+JACOBI_TIMED = [("NQuad=68 chunk", 34, 16384, torch.float32), ("NQuad=68 chunk", 34, 16384, torch.float64),
+                ("NQuad=68 column", 34, 1088, torch.float32), ("NQuad=128 column", 64, 128, torch.float32),
+                ("NQuad=30 column", 15, 1920, torch.float32), ("odd n", 33, 16384, torch.float32)]
 # kernel 6's timed shapes on random dense blocks: (label, L, n, B, dtype).
 # The NQuad=68 chunk's blocks and the columns' of NQuad = 68 and 128 in
 # float32, then the other routes of the register tile: the chunk and the
@@ -164,15 +190,20 @@ def split_copies(bases):
     return copies
 
 
-def start_builds(versions):
-    """Start one nvcc for each (label, source text) with the kernels' flags;
-    returns a function that waits for them and gives (label, entry points
-    by dtype, ptxas entries) of each."""
+# the argument types of each source's C entry points (<kind>_f32, _f64)
+ENTRY_ARGS = {"blocktri_wide": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+              "jacobi_eigh_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2}
+
+
+def start_builds(versions, kind="blocktri_wide"):
+    """Start one nvcc for each (label, source text) of ``kind``'s source
+    with the kernels' flags; returns a function that waits for them and
+    gives (label, entry points by dtype, ptxas entries) of each."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for label, text in versions:
         digest = hashlib.sha256(text.encode() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-        src = _build.BUILD_DIR / f"other-blocktri_wide-{digest}.cu"
+        src = _build.BUILD_DIR / f"other-{kind}-{digest}.cu"
         src.write_text(text)
         out = src.with_suffix(".so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.REPORT_FLAGS, "-o", str(out), str(src)]
@@ -187,8 +218,8 @@ def start_builds(versions):
             lib = ctypes.CDLL(str(out))
             fns = {}
             for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
-                fn = getattr(lib, f"blocktri_wide_{suffix}")
-                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                fn = getattr(lib, f"{kind}_{suffix}")
+                fn.argtypes = ENTRY_ARGS[kind]
                 fn.restype = ctypes.c_int
                 fns[dtype] = fn
             entries = [(a, int(r), int(sk), int(st), int(ld)) for a, sk, st, ld, r, _ in _PTXAS.findall(log)]
@@ -246,6 +277,39 @@ def gradient_operands(nquad=68, nlayers=64):
     return [(f"NQuad={nquad} column gradient, {what} solve", ops) for what, ops in zip(("forward", "transposed"), seen)]
 
 
+def jacobi_entry(fn, At, sweeps):
+    """Kernel 5's C entry point ``fn`` (of any build) on ``At``, outputs
+    allocated here, the device workspace only where A and V do not fit in
+    shared memory; returns a launch function and (w, V)."""
+    n, _, B = At.shape
+    w = torch.empty((n, B), dtype=At.dtype, device="cuda")
+    V = torch.empty_like(At)
+    slots = slot_table(n, At.device)
+    nbytes = _jacobi_kernel(At.dtype)[1](n, B)          # the interface's own workspace query
+    ws = torch.empty(nbytes // At.element_size(), dtype=At.dtype, device="cuda") if nbytes else None
+    ptrs = [At.data_ptr(), w.data_ptr(), V.data_ptr(), slots.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    wsp = None if ws is None else ws.data_ptr()
+    return (lambda: fn(*ptrs, n, B, slots.shape[0], sweeps, wsp, stream)), (w, V)
+
+
+def time_jacobi_versions(versions, reps=3):
+    """Each kernel-5 entry point of ``versions`` (label, entry points by
+    dtype) at the shapes of `JACOBI_TIMED`, in turns: versions, then the
+    same in reverse order."""
+    for label, n, B, dtype in JACOBI_TIMED:
+        At = scan_matrices(n, B, 1, dtype)
+        times = {}
+        for name, fns in versions + versions[::-1]:
+            call, _ = jacobi_entry(fns[dtype], At, default_sweeps(n, dtype))
+            if call():
+                raise RuntimeError(f"{name}: launch failed at n={n} B={B}")
+            times.setdefault(name, []).append(cuda_ms(call, reps))
+        print(f"time jacobi_eigh_wide {label} n={n} B={B} {str(dtype)[6:]} (C entry, ms):", flush=True)
+        for name, ts in times.items():
+            print(f"    {' '.join(f'{t:.4f}' for t in ts)}  {name}", flush=True)
+
+
 def time_versions(versions, cases, reps=5):
     """Each entry point of ``versions`` (label, entry points by dtype) on
     the operands of each case (label, ops), in turns: versions, then the
@@ -272,6 +336,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Build, check and time the wide kernels on one GPU.")
     parser.add_argument("--source", nargs="*", default=[], help="other versions of blocktri_wide.cu to time")
     parser.add_argument("--split", nargs="*", default=[], help="base sources of the SPLIT_EDITS copies")
+    parser.add_argument("--jacobi-source", nargs="*", default=[],
+                        help="other versions of jacobi_eigh_wide.cu to check and time")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("check_wide: CUDA is not available", file=sys.stderr)
@@ -281,22 +347,34 @@ def main(argv=None):
     others = [(path, Path(path).read_text()) for path in args.source]
     copies = split_copies(args.split)
     pending = start_builds(others + copies)
+    pending_jacobi = start_builds([(path, Path(path).read_text()) for path in args.jacobi_source],
+                                  "jacobi_eigh_wide")
     _build.build(names)
-    built = pending()
-    print(f"built {names} and {len(built)} other versions in {time.perf_counter() - t0:.1f} s on "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+    built, built_jacobi = pending(), pending_jacobi()
+    print(f"built {names} and {len(built) + len(built_jacobi)} other versions in {time.perf_counter() - t0:.1f} s "
+          f"on {torch.cuda.get_device_name(0)}", flush=True)
     for name in names[:2]:
         print_ptxas(name, [(a, r, sk, st, ld) for a, r, sk, st, ld, _ in ptxas_entries(name)])
-    for label, _, entries in built:
+    for label, _, entries in built + built_jacobi:
         print_ptxas(label, entries)
     failed = 0
     for n, B in JACOBI:
         for dtype in (torch.float32, torch.float64):
             At = scan_matrices(n, B, 10 * n + B, dtype)
+            w64 = eigvalsh64(At)
+            lim = wide_limits(n, dtype)
             for ws in (False, True):
                 w, V = jacobi_wide(At, default_sweeps(n, dtype), workspace=ws)
                 label = f"jacobi_wide n={n} B={B} {str(dtype)[6:]}{' workspace' if ws else ''}"
-                failed += check_readings(label, readings(At, w, V), dtype, limits=wide_limits(n, dtype))
+                failed += check_readings(label, readings(At, w, V, w64), dtype, limits=lim)
+            for name, fns, _ in built_jacobi:
+                call, (w, V) = jacobi_entry(fns[dtype], At, default_sweeps(n, dtype))
+                if call():
+                    failed += 1
+                    print(f"  {name} n={n} B={B}: launch FAILED", flush=True)
+                    continue
+                label = f"{name} n={n} B={B} {str(dtype)[6:]}"
+                failed += check_readings(label, readings(At, w, V, w64), dtype, limits=lim)
     for L, n, B in BLOCKTRI:
         for dtype in (torch.float32, torch.float64):
             ops = random_blocks(L, n, B, 100 * L + n, dtype)
@@ -340,9 +418,11 @@ def main(argv=None):
             print(f"  pydisort NQuad={nquad} {label}: |f32 - f64| {d:.3e} (bound {bound:.3e}) "
                   f"{'ok' if d < bound else 'FAILED'}", flush=True)
 
-    At = scan_matrices(34, 16384, 1, torch.float32)
-    ms = cuda_ms(lambda: jacobi_wide(At, default_sweeps(34, torch.float32)), 5)
-    print(f"  jacobi_wide n=34 B=16384 float32: {ms:.4f} ms", flush=True)
+    tree = {dtype: _jacobi_kernel(dtype)[0] for dtype in (torch.float32, torch.float64)}
+    time_jacobi_versions([("jacobi_eigh_wide.cu", tree)] + [(lb, fns) for lb, fns, _ in built_jacobi])
+    if built_jacobi and not (args.source or args.split):
+        print(f"{failed} checks failed")
+        return 1 if failed else 0
     ops = random_blocks(64, 68, 256, 1, torch.float32)
     ms = cuda_ms(lambda: blocktri_wide(*ops), 3)
     print(f"  blocktri_wide L=64 n=68 B=256 float32 through launch_wide: {ms:.4f} ms", flush=True)
