@@ -13,7 +13,8 @@ solves, and drives both paths of the port:
 - the single-column ``pydisort`` in float32: the Stamnes goldens of
   ``tests/data/stamnes`` at the reference thresholds, a 64-layer column at
   NQuad=32 with 32 Fourier modes against the port's float64 CPU result,
-  and a batched NQuad=48 call, which takes the generic block-Thomas kernel;
+  and a batched 8-column NQuad=48 chunk, which takes the generic
+  block-Thomas kernel, checked, timed and traced;
 - first-order gradients: d loss / d omega through ``solve_fluxes`` at the
   bench configuration and through ``solve`` and ``eval.flux_up`` on the
   64-layer column, which take the Jacobi kernel as their eigen stage and
@@ -478,13 +479,13 @@ def phase_kernels(main_ops):
     from pythonic_disort_torch.ops import eig as eig_mod
     from pythonic_disort_torch.ops.blocktri import assemble_bvp_blocks, solve_block_tridiag_lanes
     from pythonic_disort_torch.ops.cuda_blocktri import (
-        solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain)
+        solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain, transposed_system)
     from pythonic_disort_torch.ops.cuda_eig import (
         eig_stage_lanes, eig_stage_lanes_plain, jacobi_sweeps)
     from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes
     from pythonic_disort_torch.ops.jacobi import _round_robin_schedule, default_sweeps, jacobi_eigh_lanes_plain
     from pythonic_disort_torch.tools.check_blocktri import random_blocks
-    from pythonic_disort_torch.tools.check_bvp import spill_bytes
+    from pythonic_disort_torch.tools.check_bvp import ptxas_entries, spill_bytes
     from pythonic_disort_torch.tools.check_eig import EIG_TOL, function_operands, plain_K
     from pythonic_disort_torch.tools.check_jacobi import (
         DEFAULT_SWEEP_READINGS, constant_diagonal_matrices, scan_matrices, tied_matrices)
@@ -532,6 +533,26 @@ def phase_kernels(main_ops):
         pydisort(**column_kwargs(), dtype=torch.float32, device="cuda")
     bt_col = rec.operands
     blocktri_checks(bt_col, f"blocktri {shape(bt_col)} f32 (single-column solve)")
+    with recording(cuda_blocktri, "solve_block_tridiag_lanes_cuda") as rec:
+        pydisort(**column_kwargs(), dtype=torch.float64, device="cuda")
+    bt_col64 = rec.operands
+    blocktri_checks(bt_col64, f"blocktri {shape(bt_col64)} f64 (single-column solve)")
+    # the batched gradient step's backward solve: the main-path blocks
+    # transposed as the backward of solve_bvp_fused transposes them (the
+    # forward right-hand side in place of the loss's cotangent), in f32 and
+    # f64, and the NQuad=48 chunk's blocks in f64
+    bt_grad = tuple(x.contiguous() for x in (*transposed_system(*bt_main[:3]), ops[3]))
+    blocktri_checks(bt_grad, f"blocktri {shape(bt_grad)} f32 (transposed main-path blocks, the gradient's solve)")
+    bt_grad64 = tuple(x.double() for x in bt_grad)
+    blocktri_checks(bt_grad64, f"blocktri {shape(bt_grad64)} f64 (transposed main-path blocks)")
+    bt_wide64 = tuple(x.double() for x in bt_wide)
+    blocktri_checks(bt_wide64, f"blocktri {shape(bt_wide64)} f64 (NQuad=48 batched solve's blocks)")
+    bt_ptxas = {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
+                for args, regs, stack, st, ld, _ in ptxas_entries("blocktri")}
+    for args, r in bt_ptxas.items():
+        log(f"  blocktri variant <{args}>: {r['registers']} registers, {r['spill_stores'] + r['spill_loads']} B spilled")
+    check(all(r["spill_stores"] + r["spill_loads"] == 0 for r in bt_ptxas.values()),
+          "no variant of the block-Thomas kernel spills")
     # general dense blocks; the edge blocks lower[0], upper[L-1] hold NaN
     for L_, n_, B_, dt in [(1, 16, 7, torch.float32), (3, 8, 1, torch.float32), (5, 32, 33, torch.float32),
                            (4, 48, 7, torch.float32), (6, 64, 9, torch.float64), (3, 2, 40, torch.float64)]:
@@ -634,9 +655,13 @@ def phase_kernels(main_ops):
     # the kernel's time depends on the data only through the arithmetic's
     # slow paths: random dense blocks of the column's shape beside its own
     bt_others = [time_blocktri(bt_wide, "NQuad=48 batched solve", 10, 1),
+                 time_blocktri(bt_grad, "transposed main-path blocks (the gradient's solve)", 20, 0),
                  time_blocktri(bt_col, "single-column solve", 20, 2),
                  time_blocktri(random_blocks(*bt_col[3].shape, 1, torch.float32),
-                               "random dense blocks", 20, 0)]
+                               "random dense blocks", 20, 0),
+                 time_blocktri(bt_wide64, "NQuad=48 batched solve, f64", 5, 0),
+                 time_blocktri(bt_grad64, "transposed main-path blocks, f64", 10, 0),
+                 time_blocktri(bt_col64, "single-column solve, f64", 20, 0)]
     return [
         dict(name="eig_stage", route="cuda", source="pythonic_disort_torch/csrc/eig_stage.cu",
              replaces="pythonic_disort_tpu/ops/pallas_eig.py:172",
@@ -656,7 +681,8 @@ def phase_kernels(main_ops):
              replaces_function="solve_block_tridiag_lanes_pallas",
              launches=None, max_abs_err=bt_abs, max_err=bt_rel, ms=bt_main_t["ms"],
              plain_ms=bt_main_t["plain_ms"], bound_ms=bt_main_t["bound_ms"], bound_by=bt_main_t["bound_by"],
-             library_ms=None, library_call=None, timed_at=bt_main_t["shape"], other_shapes=bt_others),
+             library_ms=None, library_call=None, timed_at=bt_main_t["shape"], other_shapes=bt_others,
+             ptxas=bt_ptxas),
         dict(name="jacobi_eigh", route="cuda", source="pythonic_disort_torch/csrc/jacobi_eigh.cu",
              replaces="pythonic_disort_tpu/ops/pallas_jacobi.py:244",
              replaces_function="jacobi_eigh_lanes_pallas",
@@ -895,7 +921,9 @@ def phase_trace(run, what, wall_ms):
     """``run()`` once under torch.profiler: the card's busy time (the union
     of its kernel and copy intervals), its idle share against the untraced
     time ``wall_ms`` of the same work, the device work by name, and the
-    host's CUDA runtime calls (launches, copies, synchronizations)."""
+    host's CUDA runtime calls (launches, copies, synchronizations).  Returns
+    the busy ms and the device ms by name, or None if the profiler saw no
+    device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -909,7 +937,7 @@ def phase_trace(run, what, wall_ms):
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     if not dev:
         log("  the profiler saw no device activity: busy time and idle share not measured")
-        return
+        return None
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
         busy_us += max(0.0, b - max(a, end))
@@ -930,6 +958,7 @@ def phase_trace(run, what, wall_ms):
     runtime = Counter(e.name for e in events
                       if e.device_type == DeviceType.CPU and e.name.startswith(("cuda", "cuLaunch", "cuMemcpy")))
     log("  host CUDA runtime calls: " + ", ".join(f"{k} x{v}" for k, v in sorted(runtime.items())))
+    return busy_ms, {name: us / 1e3 for name, us in per_name.items()}
 
 
 def within(a, b, label):
@@ -1009,9 +1038,8 @@ def phase_single_column(kernels):
         u_nt64 = pydisort(**column_kwargs(nt_cor=True), dtype=torch.float64, device="cpu")[4]
     within(u_nt64(tau, phi), u_nt(tau, phi), "u with the NT corrections")
 
-    ncols = 2
-    log(f"  batched flux call at NQuad=48: {ncols} columns x {NBANDS} bands, L={NLAYERS}")
-    arrs = bench_arrays(ncols, seed=13, nquad=48)
+    log(f"  batched flux chunk at NQuad=48: {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}")
+    arrs = bench_arrays(CHUNK_COLS, seed=13, nquad=48)
     problem, ptau = make_problem(arrs, torch.float32, "cuda", nquad=48)
     reset_launches()
     out = solve_fluxes(problem, ptau)
@@ -1021,9 +1049,29 @@ def phase_single_column(kernels):
     kernels[2]["launches_nquad48_chunk"] = launches["blocktri"]
     check(launches["blocktri"] > 0 and launches["bvp_fused"] == 0,
           "the NQuad=48 batched solve takes the generic block-Thomas kernel")
-    p64, tau64 = make_problem(arrs, torch.float64, "cpu", nquad=48)
+    check(all(torch.isfinite(x).all().item() for x in out), "NQuad=48 fluxes finite")
+    nref = REF_COLS * NBANDS
+    p64, tau64 = make_problem(rows(arrs, nref), torch.float64, "cpu", nquad=48)
     for lbl, a, b in zip(("fup", "fdn", "fdir"), solve_fluxes(p64, tau64), out):
-        within(a.numpy(), b.double().cpu().numpy(), f"NQuad=48 {lbl}")
+        within(a.numpy(), b[:nref].double().cpu().numpy(), f"NQuad=48 {lbl} ({nref} rows)")
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve_fluxes(problem, ptau)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    chunk48_ms = min(times)
+    bt48 = kernels[2]["other_shapes"][0]
+    log(f"  NQuad=48 chunk: {chunk48_ms:.3f} ms (best of {REPS}: {', '.join(f'{t:.3f}' for t in times)}), "
+        f"{CHUNK_COLS / chunk48_ms * 1e3:.3f} columns/s; kernel 3 {bt48['ms']:.3f} ms x {launches['blocktri']} "
+        f"({bt48['shape']}, phase 3)")
+    kernels[2]["nquad48_chunk_ms"] = chunk48_ms
+    traced = phase_trace(lambda: solve_fluxes(problem, ptau), "phase 5, one batched NQuad=48 chunk", chunk48_ms)
+    if traced:
+        busy, per_name = traced
+        k3 = sum(ms for name, ms in per_name.items() if "blocktri_kernel" in name)
+        log(f"  kernel 3 in the traced NQuad=48 chunk: {k3:.3f} ms, {k3 / busy:.3f} of the device busy time")
 
     log("  host-clock time per pydisort call (solve and one flux_up evaluation, synchronized)")
     timed = {name: cases[name][0] for name in ("1a", "5a", "9b")}

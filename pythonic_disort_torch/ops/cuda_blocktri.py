@@ -127,8 +127,9 @@ def _blocktri(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
     L, n, B = _check_blocks(name, *ops)
     if n > BLOCK_MAX:
         return solve_block_tridiag_lanes_wide(*ops)
-    # [W_l | g_l] stack written by the forward sweep, read by the backward
-    WG = torch.empty((L, n, n + 1, B), dtype=diag_t.dtype, device=diag_t.device)
+    # [W_l | g_l] stack, lane-major: written by the forward sweep, read by
+    # the backward
+    WG = torch.empty((B, L, n, n + 1), dtype=diag_t.dtype, device=diag_t.device)
     x = _launch("blocktri", ops, WG, torch.empty_like(rhs_t), (L, n, B))
     solve_block_tridiag_lanes_cuda.launches += 1
     return x
