@@ -13,8 +13,9 @@ solves, and drives both paths of the port:
 - the single-column ``pydisort`` in float32: the Stamnes goldens of
   ``tests/data/stamnes`` at the reference thresholds, a 64-layer column at
   NQuad=32 with 32 Fourier modes against the port's float64 CPU result,
-  and a batched 8-column NQuad=48 chunk, which takes the generic
-  block-Thomas kernel, checked, timed and traced;
+  and a batched 8-column NQuad=48 chunk, which takes the fused
+  boundary-value kernel of 34 <= 2N <= 64 (kernel 7), checked, timed and
+  traced;
 - first-order gradients: d loss / d omega through ``solve_fluxes`` at the
   bench configuration and through ``solve`` and ``eval.flux_up`` on the
   64-layer column, which take the Jacobi kernel as their eigen stage and
@@ -195,7 +196,7 @@ def recording(module, name):
 def capture_kernel_inputs(problem, tau):
     """Run the batched path once, keeping copies of its kernels' operands:
     ``eig`` (even N <= 32) or ``jacobi_wide`` (the congruence M, other N),
-    and ``bvp`` (2N <= 32) or ``blocktri`` (wider; kernel 3 or 6)."""
+    and ``bvp`` (2N <= 64; kernel 2 or 7) or ``blocktri`` (wider; kernel 6)."""
     from pythonic_disort_torch import solve_fluxes
     from pythonic_disort_torch.models.disort import batch_solve as bs_mod
     from pythonic_disort_torch.ops import cuda_jacobi
@@ -416,8 +417,13 @@ def jacobi_checks(At, label, more_sweeps=0, keys=None):
 def bvp_gradient_route_check(ops, label):
     """Gradients of sum(x * r), r fixed and random, through the fused BVP
     kernel's Function and through the assembled blocks and the generic
-    kernel's Function: within rtol 2e-3 and 1e-5 x max|g| (the float32
-    bound of tests_tpu/test_tpu_production.py for the same comparison)."""
+    kernel's Function, in float32: each held to the fused route's gradient
+    in float64 on the same operands within rtol 2e-3 and 1e-5 x max|g| (the
+    float32 bound of tests_tpu/test_tpu_production.py for the two routes'
+    comparison).  The two float32 routes' difference is logged: at 2N = 48
+    the last layer's x is known to float32 only to about 1e-3 of its own
+    scale, and the two routes' errors there differ in sign.  Returns the
+    fused route's largest error over max|g|."""
     import torch
     from pythonic_disort_torch.ops.blocktri import assemble_bvp_blocks
     from pythonic_disort_torch.ops.cuda_blocktri import solve_block_tridiag_lanes_cuda, solve_bvp_fused
@@ -425,22 +431,30 @@ def bvp_gradient_route_check(ops, label):
     r = torch.randn(ops[3].shape, generator=torch.Generator(device=ops[3].device).manual_seed(0),
                     device=ops[3].device, dtype=ops[3].dtype)
 
-    def grads(route):
-        leaves = [o.detach().clone().requires_grad_() for o in ops]
-        return torch.autograd.grad((route(*leaves) * r).sum(), leaves)
+    def grads(route, operands, weights):
+        leaves = [o.detach().clone().requires_grad_() for o in operands]
+        return torch.autograd.grad((route(*leaves) * weights).sum(), leaves)
 
-    fused = grads(solve_bvp_fused)
-    assembled = grads(lambda G, d, b, rhs: solve_block_tridiag_lanes_cuda(*assemble_bvp_blocks(G, d, b), rhs))
+    fused = grads(solve_bvp_fused, ops, r)
+    assembled = grads(lambda G, d, b, rhs: solve_block_tridiag_lanes_cuda(*assemble_bvp_blocks(G, d, b), rhs),
+                      ops, r)
+    ref = grads(solve_bvp_fused, tuple(o.double() for o in ops), r.double())
     worst = 0.0
-    for name, a, b in zip(("Gt", "decay_t", "bt_rows", "rhs_t"), fused, assembled):
-        a, b = a.double(), b.double()
+    for i, name in enumerate(("Gt", "decay_t", "bt_rows", "rhs_t")):
+        b = ref[i]
         scale = b.abs().max().item()
-        err = (a - b).abs()
-        excess = (err - 2e-3 * b.abs()).max().item() / scale
-        worst = max(worst, err.max().item() / scale)
-        log(f"  {label}: d/d {name}: max |fused - assembled| / max|g| = {err.max().item() / scale:.3e}")
-        check(bool(torch.isfinite(a).all()) and excess <= 1e-5,
-              f"{label}: d/d {name} agrees within rtol 2e-3, atol 1e-5 x max|g|")
+        log(f"  {label}: d/d {name}: max |fused - assembled| / max|g| = "
+            f"{(fused[i].double() - assembled[i].double()).abs().max().item() / scale:.3e} (both float32)")
+        for route, g in (("fused", fused[i]), ("assembled", assembled[i])):
+            a = g.double()
+            err = (a - b).abs()
+            excess = (err - 2e-3 * b.abs()).max().item() / scale
+            if route == "fused":
+                worst = max(worst, err.max().item() / scale)
+            log(f"  {label}: d/d {name}: max |{route} - float64| / max|g| = {err.max().item() / scale:.3e}")
+            check(bool(torch.isfinite(a).all()) and excess <= 1e-5,
+                  f"{label}: d/d {name} of the {route} route agrees with the float64 gradient "
+                  "within rtol 2e-3, atol 1e-5 x max|g|")
     return worst
 
 
@@ -521,12 +535,15 @@ def phase_kernels(main_ops):
     shape = lambda o: f"L={o[1].shape[0]} n={o[1].shape[1]} B={o[1].shape[3]}"
     bt_abs, bt_rel = blocktri_checks(bt_main, f"blocktri {shape(bt_main)} f32 (main-path blocks)",
                                      fused_x=solve_bvp_fused(*ops))
+    # kernel 3 at n = 48: the NQuad=48 chunk's boundary-value operands,
+    # assembled as the route kernel 7 replaced assembled them
     nquad48 = capture_kernel_inputs(*make_problem(
         bench_arrays(CHUNK_COLS, seed=11, nquad=48), torch.float32, "cuda", nquad=48))
-    bt_wide = nquad48["blocktri"]
-    blocktri_checks(bt_wide, f"blocktri {shape(bt_wide)} f32 (NQuad=48 batched solve)")
-    wide64 = capture_kernel_inputs(*make_problem(
-        bench_arrays(1, seed=12, nlayers=6, nquad=48), torch.float64, "cuda", nquad=48))["blocktri"]
+    assembled = lambda o: tuple(x.contiguous() for x in (*assemble_bvp_blocks(*o[:3]), o[3]))
+    bt_wide = assembled(nquad48["bvp"])
+    blocktri_checks(bt_wide, f"blocktri {shape(bt_wide)} f32 (NQuad=48 batched solve's blocks)")
+    wide64 = assembled(capture_kernel_inputs(*make_problem(
+        bench_arrays(1, seed=12, nlayers=6, nquad=48), torch.float64, "cuda", nquad=48))["bvp"])
     blocktri_checks(tuple(o[..., :33].contiguous() for o in wide64), "blocktri L=6 n=48 B=33 f64 (ragged)")
     with recording(cuda_blocktri, "solve_block_tridiag_lanes_cuda") as rec, \
             recording(eig_mod, "eig_stage_lanes") as eig_col:
@@ -662,7 +679,7 @@ def phase_kernels(main_ops):
                  time_blocktri(bt_wide64, "NQuad=48 batched solve, f64", 5, 0),
                  time_blocktri(bt_grad64, "transposed main-path blocks, f64", 10, 0),
                  time_blocktri(bt_col64, "single-column solve, f64", 20, 0)]
-    return [
+    return nquad48["bvp"], [
         dict(name="eig_stage", route="cuda", source="pythonic_disort_torch/csrc/eig_stage.cu",
              replaces="pythonic_disort_tpu/ops/pallas_eig.py:172",
              replaces_function="eig_stage_lanes_pallas",
@@ -850,15 +867,103 @@ def phase_wide_kernels():
     ]
 
 
+# NQuad values of kernel 7's captured calls in phase 3 (1 column x 128
+# bands, 16 layers), besides the NQuad=48 chunk
+BVP_WIDE_NQUAD = (34, 64)
+
+
+def phase_bvp_wide(ops48):
+    """Phase 3 for kernel 7 (34 <= 2N <= 64): against its plain version in
+    float64 on the NQuad=48 chunk's operands (float32, and float64 from the
+    same problem built in float64), on NQuad = 34 and 64 calls, at a
+    ragged B, L = 1 and on random dense G at 2N = 34, 48 and 64; its
+    gradient route and the assembled blocks' against float64; its ptxas
+    spills; then timed beside the route it replaces
+    (`assemble_bvp_blocks` + kernel 3) on the chunk's operands, in turns."""
+    import torch
+    from pythonic_disort_torch.ops.blocktri import assemble_bvp_blocks
+    from pythonic_disort_torch.ops.cuda_blocktri import (
+        solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain)
+    from pythonic_disort_torch.tools.check_bvp import ptxas_entries, random_operands
+
+    log("phase 3: kernel 7 (the fused boundary-value solve at 34 <= 2N <= 64) against its plain version")
+    f32, f64 = torch.float32, torch.float64
+    shape = lambda o: f"L={o[0].shape[0]} 2N={o[0].shape[1]} B={o[0].shape[3]}"
+    name = lambda dt: str(dt).removeprefix("torch.")
+    captured = lambda ncols, seed, nlayers, nquad, dt: capture_kernel_inputs(*make_problem(
+        bench_arrays(ncols, seed=seed, nlayers=nlayers, nquad=nquad), dt, "cuda", nquad=nquad))["bvp"]
+    k7_abs, k7_rel = bvp_checks(ops48, f"bvp_fused_wide {shape(ops48)} f32 (NQuad=48 chunk)")
+    chunk64 = captured(CHUNK_COLS, 11, NLAYERS, 48, f64)
+    bvp_checks(chunk64, f"bvp_fused_wide {shape(chunk64)} f64 (NQuad=48 chunk)")
+    for nquad in BVP_WIDE_NQUAD:
+        for dt in (f32, f64):
+            o = captured(1, 40 + nquad, 16, nquad, dt)
+            bvp_checks(o, f"bvp_fused_wide {shape(o)} {name(dt)} (NQuad={nquad} call)")
+    one = tuple(o[..., :777].contiguous() for o in captured(7, 6, 1, 48, f32))
+    bvp_checks(one, f"bvp_fused_wide {shape(one)} f32 (ragged)")
+    five = tuple(o[..., :1001].contiguous() for o in captured(8, 7, 5, 64, f64))
+    bvp_checks(five, f"bvp_fused_wide {shape(five)} f64 (ragged)")
+    # random systems are worse conditioned than real solves': float32 where
+    # the layers are few and 2N < 64 (as tools/check_bvp.py holds them; at
+    # L = 1, 2N = 64, B = 33 the plain version in float32 loses 6.6e-4 per
+    # lane, too close to the 1e-3 limit to tell a fault from rounding)
+    for L_, N_, B_, dt in ((1, 17, 45, f32), (1, 24, 300, f32), (1, 32, 33, f64), (6, 24, 70, f64),
+                           (4, 32, 9, f64), (3, 17, 5, f64)):
+        o = random_operands(L_, N_, B_, L_ + N_, dt)
+        bvp_checks(o, f"bvp_fused_wide {shape(o)} {name(dt)} (random dense G)")
+        if dt == f32:
+            _, rel = lane_rel_err(solve_bvp_fused_plain(*o), solve_bvp_fused_plain(*(t.double() for t in o)))
+            log(f"  the plain version in float32 on the same operands: per-lane rel {rel:.3e}")
+    grad_err = bvp_gradient_route_check(ops48, f"bvp gradient {shape(ops48)} f32 (NQuad=48 chunk's operands)")
+    ptxas = {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
+             for args, regs, stack, st, ld, _ in ptxas_entries("bvp_fused_wide")}
+    for args, r in ptxas.items():
+        log(f"  bvp_fused_wide variant <{args}>: {r['registers']} registers, "
+            f"{r['spill_stores'] + r['spill_loads']} B spilled")
+    check(all(r["spill_stores"] + r["spill_loads"] == 0 for r in ptxas.values()), "no variant of kernel 7 spills")
+
+    log("timing kernel 7 at the NQuad=48 chunk's operands (CUDA events, in turns with the assembled route)")
+    L, n2, _, B = ops48[0].shape
+
+    def timed(ops, reps):
+        """kernel 7, the assembled route, kernel 7 again; the bound."""
+        route = lambda: solve_block_tridiag_lanes_cuda(*assemble_bvp_blocks(*ops[:3]), ops[3])
+        first = cuda_ms(lambda: solve_bvp_fused(*ops), reps)
+        route_ms = cuda_ms(route, reps)
+        again = cuda_ms(lambda: solve_bvp_fused(*ops), reps)
+        esz = ops[0].element_size()
+        nbytes = (sum(o.numel() for o in ops) + ops[3].numel()) * esz
+        bound, by = bound_ms(nbytes, bvp_flops(L, n2 // 2) * B, name(ops[0].dtype))
+        stack = 2 * L * n2 * (n2 // 2 + 1) * B * esz
+        log(f"  bvp_fused_wide {shape(ops)} {name(ops[0].dtype)}: {first:.4f} ms, then {again:.4f} ms; "
+            f"assemble_bvp_blocks + blocktri between them {route_ms:.4f} ms; bound {bound:.4f} ms by {by} "
+            f"({nbytes / 1e9:.3f} GB in and out, {bvp_flops(L, n2 // 2) * B:.3e} FLOP; [H | g] stack written "
+            f"and read {stack / 1e9:.3f} GB)")
+        return first, again, route_ms, bound, by
+
+    ms, ms_again, route_ms, bound, by = timed(ops48, 20)
+    plain_ms = cuda_ms(lambda: solve_bvp_fused_plain(*ops48), 1)
+    log(f"  plain version at {shape(ops48)} f32: {plain_ms:.3f} ms")
+    ms64, ms64_again, route64, bound64, by64 = timed(chunk64, 5)
+    return dict(name="bvp_fused_wide", route="cuda", source="pythonic_disort_torch/csrc/bvp_fused_wide.cu",
+                replaces="pythonic_disort_tpu/ops/pallas_blocktri.py:382",
+                replaces_function="solve_bvp_fused_pallas, at 34 <= 2N <= 64",
+                launches=None, max_abs_err=k7_abs, max_err=k7_rel, ms=ms, ms_again=ms_again, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None, library_call=None, assembled_route_ms=route_ms,
+                gradient_route_max_err=grad_err, timed_at=f"{shape(ops48)} float32, the NQuad=48 chunk's operands",
+                f64=dict(ms=ms64, ms_again=ms64_again, assembled_route_ms=route64, bound_ms=bound64, bound_by=by64),
+                ptxas=ptxas)
+
+
 def wrappers():
     from pythonic_disort_torch.ops.cuda_blocktri import (
-        solve_block_tridiag_lanes_cuda, solve_block_tridiag_lanes_wide, solve_bvp_fused)
+        solve_block_tridiag_lanes_cuda, solve_block_tridiag_lanes_wide, solve_bvp_fused, solve_bvp_fused_wide)
     from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes
     from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes, jacobi_eigh_lanes_wide
 
     return {"eig_stage": eig_stage_lanes, "bvp_fused": solve_bvp_fused, "blocktri": solve_block_tridiag_lanes_cuda,
             "jacobi_eigh": jacobi_eigh_lanes, "jacobi_eigh_wide": jacobi_eigh_lanes_wide,
-            "blocktri_wide": solve_block_tridiag_lanes_wide}
+            "blocktri_wide": solve_block_tridiag_lanes_wide, "bvp_fused_wide": solve_bvp_fused_wide}
 
 
 def reset_launches():
@@ -885,8 +990,9 @@ def phase_main_path(arrs, problem, tau, kernels):
     check(launches["eig_stage"] > 0 and launches["bvp_fused"] > 0,
           "the eigen and fused BVP kernels launched on the main path")
     check(launches["blocktri"] == 0 and launches["jacobi_eigh"] == 0
-          and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0,
-          "the forward-only NQuad=32 chunk takes neither the generic block-Thomas nor a Jacobi kernel")
+          and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0
+          and launches["bvp_fused_wide"] == 0,
+          "the forward-only NQuad=32 chunk takes neither the generic block-Thomas, a Jacobi kernel nor kernel 7")
     check(all(torch.isfinite(x).all().item() for x in out), "fluxes finite")
     check(all(x.shape == (CHUNK_COLS * NBANDS, NLAYERS) for x in out), "fluxes have shape (1024, 64)")
 
@@ -995,6 +1101,7 @@ def phase_single_column(kernels):
     from pythonic_disort_torch import pydisort, solve_fluxes
 
     f32 = dict(dtype=torch.float32, device="cuda")
+    by_name = {k["name"]: k for k in kernels}
     log("phase 5: single-column path, pydisort in float32 on the card")
     cases = golden_cases()
     margins = {}
@@ -1022,8 +1129,8 @@ def phase_single_column(kernels):
     kernels[0]["launches_single_column"] = launches["eig_stage"]
     check(launches["eig_stage"] > 0 and launches["blocktri"] > 0,
           "the eigen and block-Thomas kernels launched on the single-column path")
-    check(launches["bvp_fused"] == 0 and launches["jacobi_eigh"] == 0,
-          "the forward-only single-column path takes neither the fused BVP nor the Jacobi kernel")
+    check(launches["bvp_fused"] == 0 and launches["bvp_fused_wide"] == 0 and launches["jacobi_eigh"] == 0,
+          "the forward-only single-column path takes neither fused BVP kernel nor the Jacobi kernel")
     _, fu64, fd64, u064, u64 = pydisort(**kwargs, dtype=torch.float64, device="cpu")
     within(fu64(tau), fu(tau), "flux_up")
     for lbl, a, b in zip(("flux_down diffuse", "flux_down direct"), fd64(tau), fd(tau)):
@@ -1046,9 +1153,10 @@ def phase_single_column(kernels):
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"  launches: {launches}")
-    kernels[2]["launches_nquad48_chunk"] = launches["blocktri"]
-    check(launches["blocktri"] > 0 and launches["bvp_fused"] == 0,
-          "the NQuad=48 batched solve takes the generic block-Thomas kernel")
+    k7 = by_name["bvp_fused_wide"]
+    k7["launches"], k7["launches_on"] = launches["bvp_fused_wide"], "batched flux path at NQuad=48, one chunk"
+    check(launches["bvp_fused_wide"] > 0 and launches["blocktri"] == 0 and launches["bvp_fused"] == 0,
+          "the NQuad=48 batched solve takes kernel 7, not the generic block-Thomas kernel")
     check(all(torch.isfinite(x).all().item() for x in out), "NQuad=48 fluxes finite")
     nref = REF_COLS * NBANDS
     p64, tau64 = make_problem(rows(arrs, nref), torch.float64, "cpu", nquad=48)
@@ -1062,16 +1170,16 @@ def phase_single_column(kernels):
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     chunk48_ms = min(times)
-    bt48 = kernels[2]["other_shapes"][0]
     log(f"  NQuad=48 chunk: {chunk48_ms:.3f} ms (best of {REPS}: {', '.join(f'{t:.3f}' for t in times)}), "
-        f"{CHUNK_COLS / chunk48_ms * 1e3:.3f} columns/s; kernel 3 {bt48['ms']:.3f} ms x {launches['blocktri']} "
-        f"({bt48['shape']}, phase 3)")
-    kernels[2]["nquad48_chunk_ms"] = chunk48_ms
+        f"{CHUNK_COLS / chunk48_ms * 1e3:.3f} columns/s; kernel 7 {k7['ms']:.3f} ms x {launches['bvp_fused_wide']} "
+        f"({k7['timed_at']}, phase 3)")
+    k7["nquad48_chunk_ms"] = chunk48_ms
     traced = phase_trace(lambda: solve_fluxes(problem, ptau), "phase 5, one batched NQuad=48 chunk", chunk48_ms)
     if traced:
         busy, per_name = traced
-        k3 = sum(ms for name, ms in per_name.items() if "blocktri_kernel" in name)
-        log(f"  kernel 3 in the traced NQuad=48 chunk: {k3:.3f} ms, {k3 / busy:.3f} of the device busy time")
+        for label, key in (("kernel 7", "bvp_wide_kernel"), ("kernel 3", "blocktri_kernel")):
+            ms = sum(v for name, v in per_name.items() if key in name)
+            log(f"  {label} in the traced NQuad=48 chunk: {ms:.3f} ms, {ms / busy:.3f} of the device busy time")
 
     log("  host-clock time per pydisort call (solve and one flux_up evaluation, synchronized)")
     timed = {name: cases[name][0] for name in ("1a", "5a", "9b")}
@@ -1165,7 +1273,8 @@ def phase_gradient(arrs, kernels, chunk_ms):
     launches = read_launches()
     log(f"  launches in one gradient step: {launches}")
     check(launches["jacobi_eigh"] >= 1 and launches["bvp_fused"] == 1 and launches["blocktri"] >= 1
-          and launches["eig_stage"] == 0 and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0,
+          and launches["eig_stage"] == 0 and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0
+          and launches["bvp_fused_wide"] == 0,
           "one gradient step takes the Jacobi kernel, the fused BVP kernel once, the block-Thomas kernel "
           "for the transposed solve, and not the forward-only eigen kernel")
     by_name = {k["name"]: k for k in kernels}
@@ -1325,7 +1434,8 @@ def phase_widths(kernels):
     launches = read_launches()
     log(f"  launches: {launches}")
     check(launches["jacobi_eigh_wide"] > 0 and launches["blocktri_wide"] > 0
-          and launches["eig_stage"] == launches["blocktri"] == launches["bvp_fused"] == 0,
+          and launches["eig_stage"] == launches["blocktri"] == launches["bvp_fused"] == 0
+          and launches["bvp_fused_wide"] == 0,
           f"the NQuad={WIDE_NQUAD} batched solve takes kernels 5 and 6 and no other")
     for name in ("jacobi_eigh_wide", "blocktri_wide"):
         by_name[name]["launches"] = launches[name]
@@ -1361,7 +1471,8 @@ def phase_widths(kernels):
         launches = read_launches()
         log(f"  batched flux call at NQuad={nquad}: 1 column x {NBANDS} bands, L={NLAYERS}; launches: {launches}")
         check(launches["jacobi_eigh_wide"] > 0 and launches["bvp_fused"] > 0
-              and launches["eig_stage"] == launches["blocktri"] == launches["blocktri_wide"] == 0,
+              and launches["eig_stage"] == launches["blocktri"] == launches["blocktri_wide"] == 0
+              and launches["bvp_fused_wide"] == 0,
               f"the NQuad={nquad} batched solve takes kernels 5 and 2")
         p64, tau64 = make_problem(rows(arrs, WIDE_REF_ROWS), torch.float64, "cpu", nquad=nquad)
         for lbl, a, b in zip(("fup", "fdn", "fdir"), solve_fluxes(p64, tau64), out):
@@ -1382,6 +1493,19 @@ def phase_widths(kernels):
               "for the transposed solve")
         within_grad(g, batched_gradient(arrs, torch.float64, "cpu", nquad=nquad)(), 1e-8,
                     f"float64 card gradient at NQuad={nquad} (every kernel in float64)")
+    # and at NQuad = 48: the Jacobi kernel (n = 24) as the eigen stage,
+    # kernel 7 forward and kernel 3 on the transposed blocks
+    arrs = rows(bench_arrays(1, seed=WIDE_SEED + 48, nquad=48), WIDE_REF_ROWS)
+    reset_launches()
+    g = batched_gradient(arrs, torch.float64, "cuda", nquad=48)()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"  batched gradient at NQuad=48, {WIDE_REF_ROWS} rows, float64; launches: {launches}")
+    check(launches["bvp_fused_wide"] == 1 and launches["blocktri"] >= 1 and launches["bvp_fused"] == 0
+          and launches["eig_stage"] == 0,
+          "the NQuad=48 batched gradient takes kernel 7 once and kernel 3 for the transposed solve")
+    within_grad(g, batched_gradient(arrs, torch.float64, "cpu", nquad=48)(), 1e-8,
+                "float64 card gradient at NQuad=48 (every kernel in float64)")
 
     log(f"  single column, L={NLAYERS}, NQuad={WIDE_NQUAD}, flux only: d sum(flux_up) / d omega")
     col = dict(nquad=WIDE_NQUAD, only_flux=True)
@@ -1417,7 +1541,8 @@ def main():
     arrs = bench_arrays(CHUNK_COLS)
     problem, tau = make_problem(arrs, torch.float32, "cuda")
     main_ops = capture_kernel_inputs(problem, tau)
-    kernels = phase_kernels(main_ops) + phase_wide_kernels()
+    ops48, kernels = phase_kernels(main_ops)
+    kernels += phase_wide_kernels() + [phase_bvp_wide(ops48)]
     chunk_ms = phase_main_path(arrs, problem, tau, kernels)
     phase_trace(lambda: solve_fluxes(problem, tau), "phase 4, one main-path chunk", chunk_ms)
     phase_single_column(kernels)

@@ -11,13 +11,13 @@ crosses the lane dimension:
   matmuls over the Legendre contraction;
 - the eigen stage is `ops.eig.disort_eigh_lanes` (CUDA kernel 1 at even
   N <= 32; at other N its Cholesky + Jacobi route, CUDA kernel 5);
-- the BVP is `ops.cuda_blocktri.solve_bvp_fused` (CUDA kernel 2), fed the
-  eigenvector blocks, decays and bottom boundary rows, for 2N <= 32
-  streams; wider systems are more than that kernel's one row per thread
-  holds, so their blocks are assembled (`ops.blocktri.assemble_bvp_blocks`)
-  and solved by the generic block-Thomas solve
-  (`ops.cuda_blocktri.solve_block_tridiag_lanes_cuda`: kernel 3 for
-  2N <= 64, kernel 6 above);
+- the BVP is `ops.cuda_blocktri.solve_bvp_fused` (CUDA kernel 2 at
+  2N <= 32, kernel 7 at 34 <= 2N <= 64), fed the eigenvector blocks,
+  decays and bottom boundary rows; wider systems, where the JAX package
+  runs its jnp path, have their blocks assembled
+  (`ops.blocktri.assemble_bvp_blocks`) and solved by the generic
+  block-Thomas solve (`ops.cuda_blocktri.solve_block_tridiag_lanes_cuda`,
+  kernel 6 there);
 - the flux quadrature ``(mu W) @ G C`` is folded into per-layer tables
   (``fvec_*``, ``fb_*``), so ``G`` and ``GC`` are never materialized.
 """

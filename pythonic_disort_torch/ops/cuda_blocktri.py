@@ -2,12 +2,14 @@
 
 Counterpart of ``pythonic_disort_tpu/ops/pallas_blocktri.py``.
 
-`solve_bvp_fused` (``csrc/bvp_fused.cu``, for ``solve_bvp_fused_pallas``):
-the L-layer block-tridiagonal boundary-value system is assembled from the
-eigenvector blocks and decays inside the kernel and solved by block
-Thomas with partial pivoting; 2N <= 32.  Its plain version assembles the
-blocks (`blocktri.assemble_bvp_blocks`) and runs the pivoted block-Thomas
-loop (`blocktri.solve_block_tridiag_lanes`).
+`solve_bvp_fused` (for ``solve_bvp_fused_pallas``): the L-layer
+block-tridiagonal boundary-value system is assembled from the eigenvector
+blocks and decays inside the kernel and solved by block Thomas with
+partial pivoting, at the 2N <= 64 the TPU kernel takes: ``csrc/bvp_fused.cu``
+(kernel 2) at 2N <= 32, ``csrc/bvp_fused_wide.cu`` (kernel 7,
+`solve_bvp_fused_wide`) at 34 <= 2N <= 64.  Their plain version assembles
+the blocks (`blocktri.assemble_bvp_blocks`) and runs the pivoted
+block-Thomas loop (`blocktri.solve_block_tridiag_lanes`).
 
 `solve_block_tridiag_lanes_cuda` (for ``solve_block_tridiag_lanes_pallas``):
 the same pivoted block Thomas on explicit dense lower/diag/upper blocks.
@@ -46,13 +48,14 @@ def solve_bvp_fused_plain(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-FUSED_BLOCK_MAX = 32    # largest block size 2N of csrc/bvp_fused.cu
+FUSED_BLOCK_MAX = 64    # largest block size 2N of the fused solve (csrc/bvp_fused_wide.cu)
+FUSED_NARROW_MAX = 32   # largest block size 2N of csrc/bvp_fused.cu
 BLOCK_MAX = 64          # largest block size n of csrc/blocktri.cu
 
 
 def _kernel(name, dtype):
     """The C entry point ``<name>_f32`` / ``<name>_f64`` of ``csrc/<name>.cu``;
-    both sources take six pointers, three sizes and the stream."""
+    the sources it serves take six pointers, three sizes and the stream."""
     fn = getattr(_build.load(name), f"{name}_{_SUFFIX[dtype]}")
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -60,7 +63,7 @@ def _kernel(name, dtype):
 
 
 def _check(name, operands: dict, want: dict) -> None:
-    """What both kernels ask of their operands (label -> tensor): CUDA
+    """What the kernels ask of their operands (label -> tensor): CUDA
     tensors on one device, one of float32/float64, the shapes ``want``,
     contiguous."""
     ops = tuple(operands.values())
@@ -84,26 +87,55 @@ def _launch(name, operands, scratch, x, sizes) -> torch.Tensor:
     return x
 
 
+def _check_bvp(name, Gt, decay_t, bt_rows, rhs_t):
+    """`_check` for the boundary-value operands; returns (L, 2N, B)."""
+    if Gt.dim() != 4:
+        raise ValueError(f"{name}: Gt must be (L, 2N, 2N, B), got {tuple(Gt.shape)}")
+    L, n2, _, B = Gt.shape
+    N = n2 // 2
+    _check(name, dict(Gt=Gt, decay_t=decay_t, bt_rows=bt_rows, rhs_t=rhs_t),
+           dict(Gt=(L, n2, n2, B), decay_t=(L, N, B), bt_rows=(N, n2, B), rhs_t=(L, n2, B)))
+    if n2 % 2 or not 2 <= n2 <= FUSED_BLOCK_MAX or L < 1 or B < 1:
+        raise ValueError(
+            f"{name}: the fused kernels take even 2N <= {FUSED_BLOCK_MAX}, L >= 1, B >= 1 (larger blocks go "
+            f"through assemble_bvp_blocks and solve_block_tridiag_lanes_cuda); got {tuple(Gt.shape)}")
+    return L, n2, B
+
+
 def _bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     """`solve_bvp_fused` without its gradient rule."""
     ops = (Gt, decay_t, bt_rows, rhs_t)
     if all(x.device.type == "cpu" for x in ops):
         return solve_bvp_fused_plain(*ops)
-    if Gt.dim() != 4:
-        raise ValueError(f"solve_bvp_fused: Gt must be (L, 2N, 2N, B), got {tuple(Gt.shape)}")
-    L, n2, _, B = Gt.shape
-    N = n2 // 2
-    _check("solve_bvp_fused", dict(Gt=Gt, decay_t=decay_t, bt_rows=bt_rows, rhs_t=rhs_t),
-           dict(Gt=(L, n2, n2, B), decay_t=(L, N, B), bt_rows=(N, n2, B), rhs_t=(L, n2, B)))
-    if n2 % 2 or not 2 <= n2 <= FUSED_BLOCK_MAX or L < 1 or B < 1:
-        raise ValueError(
-            f"solve_bvp_fused: the fused kernel takes even 2N <= {FUSED_BLOCK_MAX}, L >= 1, B >= 1 (larger blocks go "
-            f"through assemble_bvp_blocks and solve_block_tridiag_lanes_cuda); got {tuple(Gt.shape)}")
+    L, n2, B = _check_bvp("solve_bvp_fused", *ops)
+    if n2 > FUSED_NARROW_MAX:
+        return solve_bvp_fused_wide(*ops)
     # [H_l | g_l] stack written by the forward sweep, read by the backward
-    HG = torch.empty((L, n2, N + 1, B), dtype=Gt.dtype, device=Gt.device)
+    HG = torch.empty((L, n2, n2 // 2 + 1, B), dtype=Gt.dtype, device=Gt.device)
     x = _launch("bvp_fused", ops, HG, torch.empty_like(rhs_t), (L, n2, B))
     solve_bvp_fused.launches += 1
     return x
+
+
+def solve_bvp_fused_wide(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
+    """Launch kernel 7 (``csrc/bvp_fused_wide.cu``) on CUDA operands of
+    even 34 <= 2N <= 64 (see `solve_bvp_fused` for shapes); returns x
+    (L, 2N, B).  No gradient rule: `solve_bvp_fused` sends that range
+    here.  Counted in ``solve_bvp_fused_wide.launches``."""
+    ops = (Gt, decay_t, bt_rows, rhs_t)
+    if Gt.dim() == 4 and Gt.shape[1] <= FUSED_NARROW_MAX:
+        raise ValueError(f"solve_bvp_fused_wide: kernel 7 takes 2N > {FUSED_NARROW_MAX} (smaller blocks go "
+                         f"through solve_bvp_fused's kernel 2); got {tuple(Gt.shape)}")
+    L, n2, B = _check_bvp("solve_bvp_fused_wide", *ops)
+    # [H_l | g_l] stack, lane-major: written by the forward sweep, read by
+    # the backward
+    HG = torch.empty((B, L, n2, n2 // 2 + 1), dtype=Gt.dtype, device=Gt.device)
+    x = _launch("bvp_fused_wide", ops, HG, torch.empty_like(rhs_t), (L, n2, B))
+    solve_bvp_fused_wide.launches += 1
+    return x
+
+
+solve_bvp_fused_wide.launches = 0
 
 
 def _check_blocks(name, lower_t, diag_t, upper_t, rhs_t):
@@ -244,8 +276,9 @@ def solve_bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     ``Gt`` (L, 2N, 2N, B) eigenvector blocks, ``decay_t`` (L, N, B)
     homogeneous decays, ``bt_rows`` (N, 2N, B) bottom boundary rows,
     ``rhs_t`` (L, 2N, B).  CPU tensors take `solve_bvp_fused_plain`; CUDA
-    tensors launch the kernel (counted in ``solve_bvp_fused.launches``)
-    or raise.  Differentiable in every operand: the backward assembles
+    tensors launch kernel 2 at 2N <= 32 (counted in
+    ``solve_bvp_fused.launches``) and kernel 7 at 34 <= 2N <= 64
+    (`solve_bvp_fused_wide`), or raise.  Differentiable in every operand: the backward assembles
     the blocks and solves the transposed system with
     `solve_block_tridiag_lanes_cuda`'s kernel.
     """

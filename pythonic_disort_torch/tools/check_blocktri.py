@@ -13,8 +13,9 @@ registers and spills.  While they build it captures, on the CPU in
 float64 (so that no other kernel builds), the blocks of the three shapes
 kernel 3 serves on the card (`captured_cases`):
 
-- the NQuad=48 chunk's blocks, L=64, n=48, B=1024 (the batched solve at
-  2N > 32 assembles the blocks and calls kernel 3);
+- the NQuad=48 chunk's blocks, L=64, n=48, B=1024: the chunk's
+  boundary-value operands (which the batched solve hands kernel 7),
+  assembled as the route kernel 7 replaced assembled them for kernel 3;
 - the batched gradient step's transposed blocks, L=64, n=32, B=1024: the
   bench chunk's boundary-value blocks, assembled and transposed as the
   backward of ``solve_bvp_fused`` does, with a seeded Gaussian right-hand
@@ -117,8 +118,8 @@ def captured_cases(ncols=8, nlayers=64):
     from .check_bvp import bench_arrays, bench_problem
 
     prob48 = bench_problem(ncols, nlayers, 48, 11)
-    chunk48 = _captured(batch_solve, "solve_block_tridiag_lanes_cuda",
-                        lambda: pt.solve_fluxes(prob48, prob48.tau_arr))
+    ops48 = _captured(batch_solve, "solve_bvp_fused", lambda: pt.solve_fluxes(prob48, prob48.tau_arr))
+    chunk48 = (*assemble_bvp_blocks(*ops48[:3]), ops48[3])
     prob32 = bench_problem(ncols, nlayers, 32, 42)
     Gt, decay_t, bt_rows, rhs_t = _captured(batch_solve, "solve_bvp_fused",
                                             lambda: pt.solve_fluxes(prob32, prob32.tau_arr))
@@ -148,13 +149,16 @@ def lane_rel_err(ops):
     return lane_rel(solve_block_tridiag_lanes_cuda(*ops), ops)
 
 
-def entry_call(fn, ops, wide=False):
+def entry_call(fn, ops, wide=False, fused=False):
     """A launch of the C entry ``fn`` of a kernel-3 version (or of kernel
-    6, ``wide``) on ``ops``, its outputs allocated here once; returns the
-    launch function and x.  The [W | g] stack has L n (n+1) B elements in
-    either layout."""
-    L, n, _, B = ops[1].shape
-    WG = torch.empty(B * L * n * (n + 1), dtype=ops[1].dtype, device="cuda")
+    6, ``wide``, or of kernel 7, ``fused``, whose entry takes kernel 3's
+    arguments with the boundary-value operands (Gt, decay_t, bt_rows,
+    rhs_t) in place of the blocks) on ``ops``, its outputs allocated here
+    once; returns the launch function and x.  The scratch stack has
+    L n (n+1) B elements in either layout ([W | g]), or L n (n/2+1) B
+    with ``fused`` ([H | g], n = 2N)."""
+    L, n, _, B = ops[0].shape
+    WG = torch.empty(B * L * n * (n // 2 + 1 if fused else n + 1), dtype=ops[0].dtype, device="cuda")
     x = torch.empty_like(ops[3])
     ptrs = [t.data_ptr() for t in (*ops, WG, x)]
     stream = torch.cuda.current_stream().cuda_stream
@@ -175,16 +179,16 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def time_versions(versions, cases, reps=5):
+def time_versions(versions, cases, reps=5, fused=False):
     """Each entry of ``versions`` (label, entry points by dtype, wide) on
-    the blocks of each case (label, ops), in turns: versions, then the same
-    in reverse order."""
+    the operands of each case (label, ops; `entry_call`'s ``fused``), in
+    turns: versions, then the same in reverse order."""
     for label, ops in cases:
-        L, n, _, B = ops[1].shape
-        dtype = ops[1].dtype
+        L, n, _, B = ops[0].shape
+        dtype = ops[0].dtype
         times = {}
         for name, fns, wide in versions + versions[::-1]:
-            call, _ = entry_call(fns[dtype], ops, wide)
+            call, _ = entry_call(fns[dtype], ops, wide, fused)
             if call():
                 raise RuntimeError(f"{name}: launch failed at L={L} n={n} B={B}")
             times.setdefault(name, []).append(cuda_ms(call, reps))

@@ -192,6 +192,7 @@ def split_copies(bases):
 
 # the argument types of each source's C entry points (<kind>_f32, _f64)
 ENTRY_ARGS = {"blocktri": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+              "bvp_fused_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
               "blocktri_wide": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
               "jacobi_eigh_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2}
 

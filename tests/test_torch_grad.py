@@ -9,7 +9,7 @@ differences, the port is checked against them too.  Added: the batched
 flux gradient through ``solve_fluxes`` (the cases of
 ``tests/test_batch_solve.py::test_batched_grad_matches_vmapped_grad`` and
 ``tests/test_parallel.py::test_gradients_flow``), NQuad = 48 (the
-generic block-Thomas Function inside the batched solve), ties in the
+fused boundary-value Function at 2N = 48, kernel 7's on the card), ties in the
 source rescaling, the eigen stage's gradient route, and the boundary-value
 Function's backward against native autograd through its plain version.
 On CPU tensors the port's kernels run their plain versions inside the
@@ -350,8 +350,9 @@ def test_batched_grad_matches_jax():
 
 
 def test_batched_grad_nquad48():
-    """2N = 48 > 32: the batched solve assembles the blocks and the generic
-    block-Thomas Function (kernel 3's, plain here) carries the gradient."""
+    """2N = 48 > 32: the fused boundary-value Function carries the gradient
+    (kernel 7 forward and kernel 3 on the transposed blocks on the card,
+    plain here)."""
     problem, tau = _problem(2, 1, True, False, False, True, True, S=2, nquad=48, seed=3)
     assert_batched_omega_grad(problem, tau)
 
