@@ -17,7 +17,8 @@ solves, and drives both paths of the port:
   boundary-value kernel of 34 <= 2N <= 64 (kernel 7), checked, timed and
   traced;
 - first-order gradients: d loss / d omega through ``solve_fluxes`` at the
-  bench configuration and through ``solve`` and ``eval.flux_up`` on the
+  bench configuration and at NQuad = 48 (the Jacobi kernel at n = 24,
+  kernel 7 forward), and through ``solve`` and ``eval.flux_up`` on the
   64-layer column, which take the Jacobi kernel as their eigen stage and
   the block-Thomas kernel for the transposed solve, against the port's
   float64 CPU gradient, timed and traced;
@@ -91,15 +92,9 @@ def bench_arrays(ncols, seed=42, nlayers=NLAYERS, nquad=NQUAD):
 
 
 def make_problem(arrs, dtype, device, nquad=NQUAD):
-    import pythonic_disort_torch as pt
+    from pythonic_disort_torch.tools.check_bvp import batched_problem
 
-    nlayers = arrs["tau"].shape[1]
-    cfg = pt.DisortConfig(
-        nquad=nquad, nleg=nquad, nleg_all=nquad + 1, nfourier=1, nlayers=nlayers,
-        nscoeffs=0, nbdrf=0, has_beam=True, only_flux=True, has_deltam=True)
-    prob = pt.make_batched_problem(
-        cfg, arrs["tau"], arrs["omega"], arrs["leg"], arrs["mu0"], arrs["I0"],
-        f_arr=arrs["f_arr"], dtype=dtype, device=device)
+    prob = batched_problem(arrs, nquad, dtype, device)
     # fluxes at the layer bottoms, with tau already on the device
     return prob, prob.tau_arr
 
@@ -496,7 +491,7 @@ def phase_kernels(main_ops):
         solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain, transposed_system)
     from pythonic_disort_torch.ops.cuda_eig import (
         eig_stage_lanes, eig_stage_lanes_plain, jacobi_sweeps)
-    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes
+    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes, launch_wide
     from pythonic_disort_torch.ops.jacobi import _round_robin_schedule, default_sweeps, jacobi_eigh_lanes_plain
     from pythonic_disort_torch.tools.check_blocktri import random_blocks
     from pythonic_disort_torch.tools.check_bvp import ptxas_entries, spill_bytes
@@ -608,6 +603,22 @@ def phase_kernels(main_ops):
     n_bad = int((scan["lanes_abs"] > 1e-3).sum())
     log(f"  scan: {n_bad} lanes with max |V diag(w) V^T - A| above 1e-3, largest {scan['recon_abs']:.3e}")
     check(n_bad == 0 and scan["recon_abs"] < 1e-4, "scan: no lane above 1e-3, the largest under 1e-4")
+    # the NQuad=48 chunk's congruence M (n = 24: the eigen stage of the
+    # NQuad=48 gradient step), in float32 and a slice in float64, and the
+    # 64-layer column's (B = 2048: the column gradient's)
+    A48, B48 = nquad48["eig"]
+    M48 = congruence(A48, B48)
+    jacobi_checks(M48, f"jacobi n={M48.shape[0]} B={M48.shape[2]} f32 (NQuad=48 chunk's congruence M)")
+    jacobi_checks(congruence(A48[..., :4096].double(), B48[..., :4096].double()),
+                  "jacobi n=24 B=4096 f64 (NQuad=48 chunk's congruence M)")
+    M_col = congruence(*eig_col.operands)
+    jacobi_checks(M_col, f"jacobi n={M_col.shape[0]} B={M_col.shape[2]} f32 (64-layer column's congruence M)")
+    jac_ptxas = {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
+                 for args, regs, stack, st, ld, _ in ptxas_entries("jacobi_eigh")}
+    for args, r in jac_ptxas.items():
+        log(f"  jacobi_eigh variant <{args}>: {r['registers']} registers, {r['spill_stores'] + r['spill_loads']} B spilled")
+    check(all(r["spill_stores"] + r["spill_loads"] == 0 for r in jac_ptxas.values()),
+          "no variant of the Jacobi kernel spills")
 
     bvp_grad_err = bvp_gradient_route_check(ops, f"bvp gradient L={ops[0].shape[0]} 2N={ops[0].shape[1]} "
                                                  f"B={ops[0].shape[3]} f32 (main-path operands)")
@@ -620,6 +631,7 @@ def phase_kernels(main_ops):
     jac_sweeps = default_sweeps(n, M.dtype)
     jac_ms = cuda_ms(lambda: jacobi_eigh_lanes(M, jac_sweeps), 20)
     jac_plain_ms = cuda_ms(lambda: jacobi_eigh_lanes_plain(M, jac_sweeps), 3)
+    jac_k5_ms = cuda_ms(lambda: launch_wide(M, jac_sweeps), 10)
     esz = At.element_size()
     def eig_bound_ms(n_, B_):
         return bound_ms((2 * n_ * n_ + 4 * n_ * n_ + n_) * B_ * esz, eig_flops(n_, jacobi_sweeps(At.dtype)) * B_,
@@ -646,9 +658,29 @@ def phase_kernels(main_ops):
     for o in eig_others:
         log(f"  eig_stage {o['shape']}, {o['operands']}: {o['ms']:.4f} ms (bound {o['bound_ms']:.4f} ms "
             f"by {o['bound_by']})")
-    log(f"  jacobi_eigh: {jac_ms:.4f} ms (plain {jac_plain_ms:.3f} ms, torch.linalg.eigh on the same M "
-        f"{eigh_ms:.3f} ms, bound {jac_bound:.4f} ms by {jac_by}: {(2 * n * n + n) * B * esz / 1e9:.3f} GB, "
-        f"{jacobi_flops(n, jac_sweeps) * B:.3e} FLOP)")
+    log(f"  jacobi_eigh: {jac_ms:.4f} ms (plain {jac_plain_ms:.3f} ms, kernel 5 on the same M {jac_k5_ms:.4f} ms, "
+        f"torch.linalg.eigh on the same M {eigh_ms:.3f} ms, bound {jac_bound:.4f} ms by {jac_by}: "
+        f"{(2 * n * n + n) * B * esz / 1e9:.3f} GB, {jacobi_flops(n, jac_sweeps) * B:.3e} FLOP)")
+    # kernel 4 at the other shapes the gradient paths give it, with kernel 5
+    # (launch_wide, not counted) and the library call on the same M
+    jac_others = []
+    for what, Mx, plain_reps in (("NQuad=48 chunk's congruence M", M48, 1),
+                                 ("main-path congruence M", congruence(At.double(), Bt.double()), 0),
+                                 ("NQuad=48 chunk's congruence M", congruence(A48.double(), B48.double()), 0),
+                                 ("64-layer column's congruence M", M_col, 3)):
+        n_, _, B_ = Mx.shape
+        name = str(Mx.dtype).removeprefix("torch.")
+        sw = default_sweeps(n_, Mx.dtype)
+        ms = cuda_ms(lambda: jacobi_eigh_lanes(Mx, sw), 10)
+        k5 = cuda_ms(lambda: launch_wide(Mx, sw), 5)
+        lib = cuda_ms(lambda: in_chunks(lambda m: torch.linalg.eigh(m.permute(2, 0, 1)), Mx), 2)
+        plain = cuda_ms(lambda: jacobi_eigh_lanes_plain(Mx, sw), plain_reps) if plain_reps else None
+        bound, by = bound_ms((2 * n_ * n_ + n_) * B_ * Mx.element_size(), jacobi_flops(n_, sw) * B_, name)
+        jac_others.append(dict(shape=f"n={n_} B={B_} {name}", operands=what, ms=ms, plain_ms=plain,
+                               kernel5_ms=k5, library_ms=lib, bound_ms=bound, bound_by=by))
+        log(f"  jacobi_eigh n={n_} B={B_} {name} ({what}): {ms:.4f} ms (plain "
+            f"{'not timed' if plain is None else f'{plain:.3f} ms'}, kernel 5 {k5:.4f} ms, torch.linalg.eigh "
+            f"{lib:.3f} ms, bound {bound:.4f} ms by {by}: {jacobi_flops(n_, sw) * B_:.3e} FLOP)")
     log(f"  bvp_fused: {bvp_ms:.4f} ms (plain {bvp_plain_ms:.3f} ms, bound {bvp_bound:.4f} ms by {bvp_by}; "
         f"assemble_bvp_blocks + blocktri on the same operands {route_ms:.4f} ms; "
         f"ptxas spills {spill_bytes('bvp_fused')} B)")
@@ -706,7 +738,8 @@ def phase_kernels(main_ops):
              launches=None, max_abs_err=jac["w_abs"], max_err=jac["w"], ms=jac_ms, plain_ms=jac_plain_ms,
              bound_ms=jac_bound, bound_by=jac_by, library_ms=eigh_ms,
              library_call=f"torch.linalg.eigh on the same (B, 16, 16) M in chunks of {EIGH_CHUNK}",
-             timed_at=f"n={n} B={B} float32, the main-path congruence M"),
+             timed_at=f"n={n} B={B} float32, the main-path congruence M", kernel5_ms=jac_k5_ms,
+             other_shapes=jac_others, ptxas=jac_ptxas),
     ]
 
 
@@ -1201,24 +1234,6 @@ def phase_single_column(kernels):
                 min(times[1:]))
 
 
-def batched_gradient(arrs, dtype, device, nquad=NQUAD):
-    """One gradient step of the batched path as a function: d loss / d omega
-    with loss = sum(fup^2) + sum(fdn * fdir) (the loss of
-    tests_tpu/test_tpu_production.py's gradient test), omega a leaf that
-    make_batched_problem keeps as the problem's own."""
-    import torch
-    from pythonic_disort_torch import solve_fluxes
-
-    omega = torch.tensor(arrs["omega"], dtype=dtype, device=device, requires_grad=True)
-    problem, tau = make_problem(dict(arrs, omega=omega), dtype, device, nquad=nquad)
-
-    def step():
-        fup, fdn, fdir = solve_fluxes(problem, tau)
-        return torch.autograd.grad((fup**2).sum() + (fdn * fdir).sum(), omega)[0]
-
-    return step
-
-
 def column_gradient(dtype, device, nquad=NQUAD, only_flux=False):
     """d sum(flux_up) / d omega (64,) of the 64-layer column through
     build_problem, solve and eval.flux_up."""
@@ -1244,7 +1259,7 @@ def within_grad(g, g_ref, bound, label):
     check(bool(torch.isfinite(g).all()) and err < bound * scale, f"{label} within {bound:g} x max|g_ref|")
 
 
-def beam_pole_distance(arrs):
+def beam_pole_distance(arrs, nquad=NQUAD):
     """Per row, min |K mu0 - 1| over its layers and eigenvalues K (float64,
     CPU).  The beam's particular solution divides by 1/mu0 - K: near that
     pole the solution is a difference of large terms, and its derivative
@@ -1253,8 +1268,8 @@ def beam_pole_distance(arrs):
     import torch
     from pythonic_disort_torch.models.disort.batch_solve import solve_batched
 
-    problem, _ = make_problem(arrs, torch.float64, "cpu")
-    K = solve_batched(problem).K[:, 0, :, NQUAD // 2:]                  # (S, L, N), K > 0
+    problem, _ = make_problem(arrs, torch.float64, "cpu", nquad=nquad)
+    K = solve_batched(problem).K[:, 0, :, nquad // 2:]                  # (S, L, N), K > 0
     mu0 = torch.as_tensor(arrs["mu0"], dtype=torch.float64)
     return (K * mu0[:, None, None] - 1).abs().amin(dim=(1, 2))
 
@@ -1263,10 +1278,11 @@ def phase_gradient(arrs, kernels, chunk_ms):
     """First-order gradients on the card: the batched path at the bench
     configuration and the 64-layer column, each against float64 on the CPU."""
     import torch
+    from pythonic_disort_torch.tools.check_jacobi import gradient_step
 
     log(f"phase 6: gradient path, d loss / d omega, {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}, "
         f"NQuad={NQUAD}, f32, cuda")
-    step = batched_gradient(arrs, torch.float32, "cuda")
+    step = gradient_step(arrs, torch.float32, "cuda")
     reset_launches()
     g = step()
     torch.cuda.synchronize()
@@ -1286,9 +1302,9 @@ def phase_gradient(arrs, kernels, chunk_ms):
 
     nref = REF_COLS * NBANDS
     t0 = time.perf_counter()
-    g_ref = batched_gradient(rows(arrs, nref), torch.float64, "cpu")()
+    g_ref = gradient_step(rows(arrs, nref), torch.float64, "cpu")()
     log(f"  float64 CPU gradient ({nref} solves) in {time.perf_counter() - t0:.1f} s")
-    within_grad(batched_gradient(rows(arrs, nref), torch.float64, "cuda")(), g_ref, 1e-8,
+    within_grad(gradient_step(rows(arrs, nref), torch.float64, "cuda")(), g_ref, 1e-8,
                 "float64 card gradient (every kernel in float64)")
     scale = g_ref.abs().max().item()
     # float32, per row: 2e-3 x max|g_ref|, grown by the beam pole's
@@ -1298,7 +1314,7 @@ def phase_gradient(arrs, kernels, chunk_ms):
     near = dist < POLE
     bound = torch.clamp(2e-3 * scale * (POLE / dist) ** 2, min=2e-3 * scale, max=POLE_CAP * scale)
     t0 = time.perf_counter()
-    g_plain = batched_gradient(rows(arrs, nref), torch.float32, "cpu")().double()
+    g_plain = gradient_step(rows(arrs, nref), torch.float32, "cpu")().double()
     log(f"  float32 CPU gradient (plain versions, {nref} solves) in {time.perf_counter() - t0:.1f} s")
     err = (g[:nref].double().cpu() - g_ref).abs().amax(dim=1)
     err_plain = (g_plain - g_ref).abs().amax(dim=1)
@@ -1332,6 +1348,7 @@ def phase_gradient(arrs, kernels, chunk_ms):
         f"{', '.join(f'{t:.3f}' for t in times)}), {step_ms / CHUNK_COLS:.3f} ms per column; "
         f"the forward-only chunk {chunk_ms:.3f} ms, ratio {step_ms / chunk_ms:.2f}")
     phase_trace(step, "phase 6, one gradient step of the main-path chunk", step_ms)
+    gradient_step_nquad48(by_name)
 
     log(f"  single column, L={NLAYERS}, NQuad={NQUAD}, NFourier={NQUAD}: d sum(flux_up) / d omega")
     reset_launches()
@@ -1354,6 +1371,81 @@ def phase_gradient(arrs, kernels, chunk_ms):
     log(f"  then {', '.join(f'{t:.3f}' for t in col_times)} ms")
     within_grad(gc, column_gradient(torch.float64, "cpu"), 2e-3, "float32 column gradient")
 
+def gradient_step_nquad48(by_name):
+    """Phase 6 at NQuad = 48: one gradient step of the 8-column chunk of
+    phase 5 in float32, whose eigen stage is the Jacobi kernel at n = 24;
+    its launches, its gradient on 64 rows against float64 on the CPU, its
+    time and trace, and the two relayout copies of the Jacobi Function's
+    forward (batch-major to lanes and back) timed on the step's operand."""
+    import torch
+    from pythonic_disort_torch.tools.check_jacobi import gradient_step
+    from pythonic_disort_torch.ops import cuda_jacobi
+    from pythonic_disort_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_lanes_raw
+
+    log(f"  gradient step at NQuad=48: {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}, f32")
+    arrs = bench_arrays(CHUNK_COLS, seed=13, nquad=48)
+    step = gradient_step(arrs, torch.float32, "cuda", nquad=48)
+    reset_launches()
+    with recording(cuda_jacobi, "jacobi_eigh_lanes") as rec:
+        g = step()
+        torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"  launches in one NQuad=48 gradient step: {launches}")
+    check(launches["jacobi_eigh"] >= 1 and launches["bvp_fused_wide"] == 1 and launches["blocktri"] >= 1
+          and launches["eig_stage"] == 0 and launches["bvp_fused"] == 0 and launches["jacobi_eigh_wide"] == 0
+          and launches["blocktri_wide"] == 0,
+          "the NQuad=48 gradient step takes the Jacobi kernel 4, kernel 7 once, kernel 3 for the transposed "
+          "solve, and not kernels 1, 2, 5 or 6")
+    by_name["jacobi_eigh"]["launches_gradient_step_nquad48"] = launches["jacobi_eigh"]
+    check(g.shape == (CHUNK_COLS * NBANDS, NLAYERS), "the NQuad=48 d loss / d omega has shape (1024, 64)")
+    nref = 64
+    t0 = time.perf_counter()
+    g_ref = gradient_step(rows(arrs, nref), torch.float64, "cpu", nquad=48)()
+    log(f"  float64 CPU gradient at NQuad=48 ({nref} solves) in {time.perf_counter() - t0:.1f} s")
+    scale = g_ref.abs().max().item()
+    dist = beam_pole_distance(rows(arrs, nref), nquad=48)
+    bound = torch.clamp(2e-3 * scale * (POLE / dist) ** 2, min=2e-3 * scale, max=POLE_CAP * scale)
+    err = (g[:nref].double().cpu() - g_ref).abs().amax(dim=1)
+    j = int((err / bound).argmax())
+    log(f"  NQuad=48 float32 against float64 on {nref} rows: largest error {err.max().item() / scale:.3e} of "
+        f"max|g_ref|; error / bound at most {(err / bound).max().item():.3f} (row {j}: d = {dist[j].item():.3e}, "
+        f"bound {bound[j].item() / scale:.3e})")
+    check(bool(torch.isfinite(g).all()) and bool((err < bound).all()),
+          f"NQuad=48 float32 card gradient within 2e-3 x max|g_ref| x max(1, ({POLE:g} / |K mu0 - 1|)^2), "
+          f"at most {POLE_CAP:g} x max|g_ref|, on {nref} rows")
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    step_ms = min(times)
+    log(f"  NQuad=48 forward + backward: {step_ms:.3f} ms per chunk (best of {REPS}: "
+        f"{', '.join(f'{t:.3f}' for t in times)})")
+    by_name["jacobi_eigh"]["gradient_step_nquad48_ms"] = step_ms
+    traced = phase_trace(step, "phase 6, one gradient step of the NQuad=48 chunk", step_ms)
+    if traced:
+        busy, per_name = traced
+        k4 = sum(v for name, v in per_name.items() if "jacobi_eigh_kernel" in name)
+        log(f"  kernel 4 in the traced NQuad=48 step: {k4:.3f} ms, {k4 / busy:.3f} of the device busy time")
+    # the Jacobi Function's forward on the step's operand, as the eigen
+    # stage calls it (sort=False), and its parts with CUDA events: the
+    # relayout of M from (B, n, n) to lanes, kernel 4, and the relayout of
+    # w and V back (a trace names every copy kernel alike, so it cannot
+    # tell these two from the step's other copies)
+    lanes = rec.operands[0]
+    A = lanes.permute(2, 0, 1).contiguous()                           # (B, n, n), as the Function gets it
+    w_l, V_l = jacobi_eigh_lanes_raw(lanes)
+    fwd_ms = cuda_ms(lambda: jacobi_eigh(A, sort=False), 10)
+    in_ms = cuda_ms(lambda: A.permute(1, 2, 0).contiguous(), 10)
+    k4_ms = cuda_ms(lambda: jacobi_eigh_lanes_raw(lanes), 10)
+    out_ms = cuda_ms(lambda: (w_l.T.contiguous(), V_l.permute(2, 0, 1).contiguous()), 10)
+    log(f"  the Jacobi Function's forward on (B, n, n) = {tuple(A.shape)}: {fwd_ms:.4f} ms (CUDA events); "
+        f"kernel 4 {k4_ms:.4f} ms, the relayout copies {in_ms:.4f} ms in and {out_ms:.4f} ms out")
+    by_name["jacobi_eigh"]["relayout_copies_ms_nquad48"] = dict(into_lanes=in_ms, out_of_lanes=out_ms)
+
+
 # phase 7 columns: NQuad -> (layers, NFourier); cut for NQuad = 68 and 128,
 # whose float64 CPU reference at 64 layers and NFourier = NQuad takes minutes
 WIDTH_COLUMNS = {2: (NLAYERS, None), 6: (NLAYERS, None), 30: (NLAYERS, None), 68: (16, None), 128: (8, 16)}
@@ -1367,6 +1459,7 @@ def phase_widths(kernels):
     """Phase 7: the NQuad values that take kernels 5 and 6, float32 on the
     card against the port's float64 CPU result."""
     import torch
+    from pythonic_disort_torch.tools.check_jacobi import gradient_step
     from pythonic_disort_torch import pydisort, solve_fluxes
 
     f32 = dict(dtype=torch.float32, device="cuda")
@@ -1483,7 +1576,7 @@ def phase_widths(kernels):
     for nquad in (6, WIDE_NQUAD):
         arrs = rows(bench_arrays(1, seed=WIDE_SEED + nquad, nquad=nquad), WIDE_REF_ROWS)
         reset_launches()
-        g = batched_gradient(arrs, torch.float64, "cuda", nquad=nquad)()
+        g = gradient_step(arrs, torch.float64, "cuda", nquad=nquad)()
         torch.cuda.synchronize()
         launches = read_launches()
         log(f"  batched gradient at NQuad={nquad}, {WIDE_REF_ROWS} rows, float64; launches: {launches}")
@@ -1491,20 +1584,21 @@ def phase_widths(kernels):
               and (launches["blocktri_wide"] == 2 if nquad > 64 else launches["blocktri"] >= 1),
               f"the NQuad={nquad} batched gradient takes kernel 5 and kernel {6 if nquad > 64 else 3} "
               "for the transposed solve")
-        within_grad(g, batched_gradient(arrs, torch.float64, "cpu", nquad=nquad)(), 1e-8,
+        within_grad(g, gradient_step(arrs, torch.float64, "cpu", nquad=nquad)(), 1e-8,
                     f"float64 card gradient at NQuad={nquad} (every kernel in float64)")
     # and at NQuad = 48: the Jacobi kernel (n = 24) as the eigen stage,
     # kernel 7 forward and kernel 3 on the transposed blocks
     arrs = rows(bench_arrays(1, seed=WIDE_SEED + 48, nquad=48), WIDE_REF_ROWS)
     reset_launches()
-    g = batched_gradient(arrs, torch.float64, "cuda", nquad=48)()
+    g = gradient_step(arrs, torch.float64, "cuda", nquad=48)()
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"  batched gradient at NQuad=48, {WIDE_REF_ROWS} rows, float64; launches: {launches}")
     check(launches["bvp_fused_wide"] == 1 and launches["blocktri"] >= 1 and launches["bvp_fused"] == 0
-          and launches["eig_stage"] == 0,
-          "the NQuad=48 batched gradient takes kernel 7 once and kernel 3 for the transposed solve")
-    within_grad(g, batched_gradient(arrs, torch.float64, "cpu", nquad=48)(), 1e-8,
+          and launches["eig_stage"] == 0 and launches["jacobi_eigh"] >= 1 and launches["jacobi_eigh_wide"] == 0,
+          "the NQuad=48 batched gradient takes the Jacobi kernel 4, kernel 7 once and kernel 3 for the "
+          "transposed solve")
+    within_grad(g, gradient_step(arrs, torch.float64, "cpu", nquad=48)(), 1e-8,
                 "float64 card gradient at NQuad=48 (every kernel in float64)")
 
     log(f"  single column, L={NLAYERS}, NQuad={WIDE_NQUAD}, flux only: d sum(flux_up) / d omega")

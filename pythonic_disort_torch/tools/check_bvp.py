@@ -87,17 +87,22 @@ def bench_arrays(ncols, seed=42, nlayers=64, nquad=32, nbands=128):
                 mu0=rng.uniform(0.2, 1.0, B), I0=np.full(B, np.pi))
 
 
-def bench_problem(ncols, nlayers, nquad, seed):
-    """A flux-only delta-M beam problem of `bench_arrays` (NQuad = nquad),
-    built by ``make_batched_problem`` in float64 on the CPU."""
+def batched_problem(a, nquad, dtype, device):
+    """The flux-only delta-M beam problem of the arrays ``a`` (the keys of
+    `bench_arrays`; ``a["omega"]`` may be a tensor, which the problem keeps
+    as its own), built by ``make_batched_problem`` at NQuad = nquad."""
     import pythonic_disort_torch as pt
 
-    a = bench_arrays(ncols, seed=seed, nlayers=nlayers, nquad=nquad)
     cfg = pt.DisortConfig(
-        nquad=nquad, nleg=nquad, nleg_all=nquad + 1, nfourier=1, nlayers=nlayers,
+        nquad=nquad, nleg=nquad, nleg_all=nquad + 1, nfourier=1, nlayers=a["tau"].shape[1],
         nscoeffs=0, nbdrf=0, has_beam=True, only_flux=True, has_deltam=True)
     return pt.make_batched_problem(cfg, a["tau"], a["omega"], a["leg"], a["mu0"], a["I0"],
-                                   f_arr=a["f_arr"], dtype=torch.float64, device="cpu")
+                                   f_arr=a["f_arr"], dtype=dtype, device=device)
+
+
+def bench_problem(ncols, nlayers, nquad, seed):
+    """`batched_problem` of `bench_arrays` in float64 on the CPU."""
+    return batched_problem(bench_arrays(ncols, seed=seed, nlayers=nlayers, nquad=nquad), nquad, torch.float64, "cpu")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,32 +1,45 @@
-"""Compile-and-check call for ``csrc/jacobi_eigh.cu`` on one NVIDIA GPU.
+"""Compile-and-check call and A/B loop for ``csrc/jacobi_eigh.cu`` (kernel
+4) on one NVIDIA GPU.
 
-    python3 -m pythonic_disort_torch.tools.check_jacobi
+    python3 -m pythonic_disort_torch.tools.check_jacobi [--source OTHER.cu ...]
 
-The short first call after a change to the kernel: builds that source
-alone (a few seconds), prints what ptxas reports, holds the kernel to the
-float64 eigenvalues of the same matrices and to per-lane orthogonality
-and reconstruction bounds, over small, ragged and odd-width shapes in
+The short loop after a change to the kernel: builds that source (and
+``jacobi_eigh_wide.cu``, kernel 5, the yardstick) and every ``--source``
+file (another version of ``jacobi_eigh.cu`` with the same C interface,
+e.g. an earlier commit's via ``git show <rev>:pythonic_disort_torch/csrc/
+jacobi_eigh.cu > build/old_jacobi.cu``, or an edited copy under
+``build/``), one nvcc each, all started together, and prints each
+version's ptxas registers and spills.  It holds every version, through
+its C entry, to `LIMITS` against the float64 eigenvalues and to per-lane
+orthogonality and reconstruction bounds at the shapes of `CHECKED` in
 float32 and float64, on batches whose diagonals tie exactly, in pairs or
 all alike (a tied pair turns by 45 degrees), and on the 131072-lane
-reconstruction scan of the TPU kernel's regression test; then times it at
-n = 16, B = 65536 with CUDA events.  Exits nonzero if a check fails.
+reconstruction scan of the TPU kernel's regression test.  Then it times
+all versions in turns (versions, then the same reversed), with kernel 5
+and ``torch.linalg.eigh`` (the library call, in `EIGH_CHUNK` chunks) on the
+same matrices, at the shapes of `TIMED` with CUDA events; and the batched
+gradient step of ``chip_smoke.py`` phase 6 (8 columns x 128 bands, 64
+layers, float32) at NQuad = 32 and 48 with each version in turn as kernel
+4, host clock, best of 3.  Exits nonzero if a check fails.
 `chip_smoke.py` at the repository root is the full run, on operands of
 real solves.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..ops import _build
-from ..ops.cuda_jacobi import jacobi_eigh_lanes
+from ..ops import _build, cuda_jacobi
 from ..ops.jacobi import default_sweeps
 
-CHECKED = [(2, 7), (4, 33), (8, 100), (10, 17), (16, 1), (16, 1000), (24, 300), (30, 40), (32, 65)]
+CHECKED = [(2, 7), (4, 33), (8, 100), (10, 17), (16, 1), (16, 1000), (22, 77), (24, 300), (24, 1025), (30, 40),
+           (32, 65)]
 # per-reading limits: sorted w against float64 (relative to the lane's
 # largest |w|), per-lane max |V^T V - I|, per-lane max |V diag(w) V^T - A|
 # relative to the lane's largest |A|
@@ -130,17 +143,38 @@ def cuda_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("check_jacobi: CUDA is not available", file=sys.stderr)
-        return 2
-    t0 = time.perf_counter()
-    _build.build(["jacobi_eigh"])
-    print(f"built jacobi_eigh in {time.perf_counter() - t0:.1f} s on {torch.cuda.get_device_name(0)}", flush=True)
-    report = _build._target("jacobi_eigh").with_suffix(".log").read_text()
-    print("\n".join(line for line in report.splitlines() if "registers" in line or "spill" in line), flush=True)
-    eig = lambda At, more=0: jacobi_eigh_lanes(At, default_sweeps(At.shape[0], At.dtype) + more)
+# timed shapes: (label, n, B, dtype): the bench chunk's congruence M and the
+# NQuad=48 chunk's (the gradient steps' eigen stage) in float32 and float64,
+# and the lanes of a 64-layer NQuad=32 column's gradient
+TIMED = [("bench chunk", 16, 65536, torch.float32), ("NQuad=48 chunk", 24, 65536, torch.float32),
+         ("bench chunk", 16, 65536, torch.float64), ("NQuad=48 chunk", 24, 65536, torch.float64),
+         ("64-layer column", 16, 2048, torch.float32)]
+
+
+def entry_call(fn, At, sweeps):
+    """A launch of the C entry ``fn`` of a kernel-4 version on ``At``, its
+    outputs allocated here once; returns the launch function and (w, V)."""
+    n, _, B = At.shape
+    w = torch.empty((n, B), dtype=At.dtype, device=At.device)
+    V = torch.empty_like(At)
+    ptrs = [At.data_ptr(), w.data_ptr(), V.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    return (lambda: fn(*ptrs, n, B, sweeps, stream)), (w, V)
+
+
+def check_version(name, fns):
+    """Hold one version (entry points by dtype) to `LIMITS`; returns the
+    failed count."""
     failed = 0
+
+    def eig(At, more=0):
+        call, out = entry_call(fns[At.dtype], At, default_sweeps(At.shape[0], At.dtype) + more)
+        if call():
+            raise RuntimeError(f"{name}: launch failed at {tuple(At.shape)}")
+        torch.cuda.synchronize()
+        return out
+
+    print(f"checks of {name}", flush=True)
     for n, B in CHECKED:
         for dtype in (torch.float32, torch.float64):
             for what, make in (("ramp", scan_matrices), ("tied pairs", tied_matrices),
@@ -148,23 +182,125 @@ def main():
                 At = make(n, B, 10 * n + B, dtype)
                 label = f"n={n} B={B} {str(dtype)[6:]} {what}"
                 dense = make is constant_diagonal_matrices
-                w, V = eig(At)
-                failed += check_readings(label, readings(At, w, V), dtype,
+                failed += check_readings(label, readings(At, *eig(At)), dtype,
                                          keys=DEFAULT_SWEEP_READINGS if dense else None)
                 if dense:
-                    w, V = eig(At, 1)
-                    failed += check_readings(f"{label}, one sweep more", readings(At, w, V), dtype)
+                    failed += check_readings(f"{label}, one sweep more", readings(At, *eig(At, 1)), dtype)
     At = scan_matrices(16, 131072, 0, torch.float32)
-    w, V = eig(At)
-    r = readings(At, w, V)
+    r = readings(At, *eig(At))
     n_bad = int((r["lanes_abs"] > 1e-3).sum())
     ok = n_bad == 0 and r["recon_abs"] < 1e-4
-    failed += not ok
     print(f"  scan n=16 B=131072 float32: {n_bad} lanes above 1e-3, max {r['recon_abs']:.3e} "
           f"{'ok' if ok else 'FAILED'}", flush=True)
-    At = scan_matrices(16, 65536, 1, torch.float32)
-    ms = cuda_ms(lambda: eig(At), 20)
-    print(f"  n=16 B=65536 float32: {ms:.4f} ms", flush=True)
+    return failed + (not ok)
+
+
+def library_eigh(At):
+    """``torch.linalg.eigh`` on the (B, n, n) matrices of ``At``, in chunks."""
+    A = At.permute(2, 0, 1)
+    for b in range(0, A.shape[0], EIGH_CHUNK):
+        torch.linalg.eigh(A[b:b + EIGH_CHUNK])
+
+
+def time_versions(versions, reps=10):
+    """Every version, kernel 5 and the library call at the shapes of
+    `TIMED`, in turns."""
+    from .check_wide import jacobi_entry
+
+    for label, n, B, dtype in TIMED:
+        At = scan_matrices(n, B, 1, dtype)
+        sweeps = default_sweeps(n, dtype)
+        calls = [(name, entry_call(fns[dtype], At, sweeps)[0]) for name, fns in versions]
+        calls.append(("kernel 5 (jacobi_eigh_wide.cu)", jacobi_entry(cuda_jacobi._wide_kernel(dtype)[0], At, sweeps)[0]))
+        times = {}
+        for name, call in calls + calls[::-1]:
+            if call():
+                raise RuntimeError(f"{name}: launch failed at n={n} B={B}")
+            times.setdefault(name, []).append(cuda_ms(call, reps))
+        times["torch.linalg.eigh"] = [cuda_ms(lambda: library_eigh(At), 2)]
+        print(f"time {label} n={n} B={B} {str(dtype)[6:]}, {sweeps} sweeps (C entry, ms):", flush=True)
+        for name, ts in times.items():
+            print(f"    {' '.join(f'{t:.4f}' for t in ts)}  {name}", flush=True)
+
+
+def gradient_step(arrs, dtype, device, nquad=32):
+    """One gradient step of the batched path as a function: d loss / d omega
+    of the arrays ``arrs`` (`check_bvp.bench_arrays`'s keys) with loss =
+    sum(fup^2) + sum(fdn * fdir) (the loss of
+    tests_tpu/test_tpu_production.py's gradient test), omega a leaf that
+    make_batched_problem keeps as the problem's own."""
+    import pythonic_disort_torch as pt
+    from .check_bvp import batched_problem
+
+    omega = torch.tensor(arrs["omega"], dtype=dtype, device=device, requires_grad=True)
+    prob = batched_problem(dict(arrs, omega=omega), nquad, dtype, device)
+
+    def step():
+        fup, fdn, fdir = pt.solve_fluxes(prob, prob.tau_arr)
+        return torch.autograd.grad((fup**2).sum() + (fdn * fdir).sum(), omega)[0]
+
+    return step
+
+
+def time_gradient_steps(versions, reps=3):
+    """The gradient step at NQuad = 32 and 48 with each version as kernel 4,
+    in turns; host clock around synchronized steps, best of ``reps``."""
+    from .check_bvp import bench_arrays
+
+    kernel = cuda_jacobi._kernel
+    try:
+        for nquad, seed in ((32, 42), (48, 13)):
+            step = gradient_step(bench_arrays(8, seed=seed, nquad=nquad), torch.float32, "cuda", nquad)
+            times = {}
+            for name, fns in versions + versions[::-1]:
+                cuda_jacobi._kernel = fns.__getitem__
+                step()
+                ts = []
+                for _ in range(reps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    ts.append(1e3 * (time.perf_counter() - t0))
+                times.setdefault(name, []).append(min(ts))
+            print(f"time gradient step NQuad={nquad}, 8 columns x 128 bands, L=64, float32 "
+                  f"(host clock, best of {reps}, ms):", flush=True)
+            for name, ts in times.items():
+                print(f"    {' '.join(f'{t:.3f}' for t in ts)}  {name}", flush=True)
+    finally:
+        cuda_jacobi._kernel = kernel
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Build, check and time kernel 4 (and other versions) on one GPU.")
+    parser.add_argument("--source", nargs="*", default=[], help="other versions of jacobi_eigh.cu to check and time")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("check_jacobi: CUDA is not available", file=sys.stderr)
+        return 2
+    from .check_bvp import ptxas_entries
+    from .check_wide import print_ptxas, start_builds
+
+    t0 = time.perf_counter()
+    pending = start_builds([(path, Path(path).read_text()) for path in args.source], "jacobi_eigh")
+    _build.build(["jacobi_eigh", "jacobi_eigh_wide"])
+    others = pending()
+    print(f"built jacobi_eigh, jacobi_eigh_wide and {len(others)} other versions in {time.perf_counter() - t0:.1f} s "
+          f"on {torch.cuda.get_device_name(0)}", flush=True)
+    tree = [(a, r, sk, st, ld) for a, r, sk, st, ld, _ in ptxas_entries("jacobi_eigh")]
+    print_ptxas("jacobi_eigh.cu", tree)
+    for label, _, entries in others:
+        print_ptxas(label, entries)
+    spilled = sum(st + ld for *_, st, ld in tree)
+    print(f"  jacobi_eigh.cu: {spilled} B spilled over {len(tree)} variants {'ok' if not spilled else 'FAILED'}",
+          flush=True)
+    versions = [("jacobi_eigh.cu", {dt: cuda_jacobi._kernel(dt) for dt in (torch.float32, torch.float64)})]
+    versions += [(label, fns) for label, fns, _ in others]
+    failed = bool(spilled)
+    for name, fns in versions:
+        failed += check_version(name, fns)
+    time_versions(versions)
+    time_gradient_steps(versions)
     print(f"{failed} checks failed")
     return 1 if failed else 0
 

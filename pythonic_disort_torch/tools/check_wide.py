@@ -194,7 +194,8 @@ def split_copies(bases):
 ENTRY_ARGS = {"blocktri": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
               "bvp_fused_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
               "blocktri_wide": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-              "jacobi_eigh_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2}
+              "jacobi_eigh_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
+              "jacobi_eigh": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 
 
 def start_builds(versions, kind="blocktri_wide"):
