@@ -27,7 +27,16 @@ solves, and drives both paths of the port:
   NQuad=68 chunk and an NQuad=68 column gradient, which go through the
   wide Jacobi kernel (5) and the wide block-Thomas kernel (6), against the
   port's float64 CPU result; the NQuad = 68 and 128 calls, the chunk and
-  the gradient are traced by kernel name.
+  the gradient are traced by kernel name;
+- the batched intensity path (phase 8): ``bench.py:117-177``'s intensity
+  chunk (2 columns x 128 bands, 64 layers, NQuad=32, NFourier=16, delta-M
+  beam, NT corrections, float32) through ``solve_intensity`` with one
+  probe per layer and through its general path, and a longwave chunk (8
+  columns, a linear isotropic source in every layer, surface emission, no
+  beam) through ``solve_fluxes`` and ``solve_actinic``, each against the
+  port's float64 CPU result on a subset of rows, timed and traced.  Phase
+  3 holds kernels 1 and 2 at the intensity chunk's shapes (262 144 eigen
+  lanes, B = 4096 boundary-value lanes).
 
 Every failed check raises, so the exit code is nonzero.  Its last two
 lines are a JSON line of per-kernel numbers and ``{"ok": true, "device":
@@ -68,6 +77,13 @@ EIGH_CHUNK = 16384
 # solution there, which the plain versions in float32 share.  The growth
 # stops at POLE_CAP x max|g_ref|, reached at d = POLE / sqrt(5).
 POLE, POLE_CAP = 1e-3, 1e-2
+# phase 8: bench.py:117-177's intensity chunk (2 columns x 128 bands,
+# NFourier = 16, seed 7, timed over BENCH_INT_COLS = 8 columns = 4 chunks)
+# and a longwave chunk (8 columns, iso source, no beam); the float64 CPU
+# references take 16 and 256 rows (16 384 eigen lanes each, as phase 4's)
+INT_COLS, INT_NFOURIER, INT_CHUNKS, INT_REF_ROWS = 2, 16, 4, 16
+INT_PHI = (0.0, 1.6, 3.1, 4.7)
+LW_REF_ROWS = REF_COLS * NBANDS
 
 def log(*a):
     print(*a, flush=True)
@@ -101,6 +117,50 @@ def make_problem(arrs, dtype, device, nquad=NQUAD):
 
 def rows(arrs, n):
     return {k: v[:n] for k, v in arrs.items()}
+
+
+def intensity_problem(arrs, dtype, device):
+    """bench.py:117-177's intensity configuration (NQuad = 32, NFourier =
+    16, delta-M beam, NT corrections) with its probes, tau (1 - 1e-6) at
+    each layer's bottom, and four azimuths."""
+    import torch
+    import pythonic_disort_torch as pt
+
+    cfg = pt.DisortConfig(
+        nquad=NQUAD, nleg=NQUAD, nleg_all=NQUAD + 1, nfourier=INT_NFOURIER, nlayers=arrs["tau"].shape[1],
+        nscoeffs=0, nbdrf=0, has_beam=True, only_flux=False, has_deltam=True, nt_correct=True)
+    prob = pt.make_batched_problem(cfg, arrs["tau"], arrs["omega"], arrs["leg"], arrs["mu0"], arrs["I0"],
+                                   f_arr=arrs["f_arr"], dtype=dtype, device=device)
+    S = arrs["tau"].shape[0]
+    phi = torch.tensor(INT_PHI, dtype=dtype, device=device).expand(S, len(INT_PHI)).contiguous()
+    return prob, prob.tau_arr * (1 - 1e-6), phi
+
+
+def longwave_arrays(ncols, seed=42):
+    """`bench_arrays` (seed 42) with a thermal source in place of the beam:
+    per layer a linear isotropic source c0 + c1 tau (c0 in [0.2, 1], c1 in
+    [0, 0.1]) and an isotropic surface emission in b_pos ([0.5, 1.5]),
+    drawn from their own numpy seed."""
+    a = bench_arrays(ncols, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    S, L = a["tau"].shape
+    a["s_poly"] = np.stack([rng.uniform(0.2, 1.0, (S, L)), rng.uniform(0.0, 0.1, (S, L))], axis=-1)
+    a["b_pos"] = np.broadcast_to(rng.uniform(0.5, 1.5, (S, 1, 1)), (S, NQUAD // 2, 1)).copy()
+    return a
+
+
+def longwave_problem(a, dtype, device, only_flux):
+    """The longwave chunk: NQuad = 32, NFourier = 1, delta-M, no beam."""
+    import pythonic_disort_torch as pt
+
+    S, L = a["tau"].shape
+    cfg = pt.DisortConfig(
+        nquad=NQUAD, nleg=NQUAD, nleg_all=NQUAD + 1, nfourier=1, nlayers=L, nscoeffs=2, nbdrf=0,
+        has_beam=False, only_flux=only_flux, has_deltam=True)
+    prob = pt.make_batched_problem(cfg, a["tau"], a["omega"], a["leg"], np.zeros(S), np.zeros(S),
+                                   f_arr=a["f_arr"], b_pos=a["b_pos"], s_poly_coeffs=a["s_poly"],
+                                   dtype=dtype, device=device)
+    return prob, prob.tau_arr
 
 
 def column_kwargs(nt_cor=False, nquad=NQUAD, nlayers=NLAYERS, nfourier=None):
@@ -188,11 +248,13 @@ def recording(module, name):
         setattr(module, name, rec.wrapper)
 
 
-def capture_kernel_inputs(problem, tau):
+def capture_kernel_inputs(problem, tau, phi=None):
     """Run the batched path once, keeping copies of its kernels' operands:
     ``eig`` (even N <= 32) or ``jacobi_wide`` (the congruence M, other N),
-    and ``bvp`` (2N <= 64; kernel 2 or 7) or ``blocktri`` (wider; kernel 6)."""
-    from pythonic_disort_torch import solve_fluxes
+    and ``bvp`` (2N <= 64; kernel 2 or 7) or ``blocktri`` (wider; kernel 6).
+    With azimuths ``phi`` the path is ``solve_intensity`` with one probe per
+    layer at ``tau``, else ``solve_fluxes``."""
+    from pythonic_disort_torch import solve_fluxes, solve_intensity
     from pythonic_disort_torch.models.disort import batch_solve as bs_mod
     from pythonic_disort_torch.ops import cuda_jacobi
     from pythonic_disort_torch.ops import eig as eig_mod
@@ -201,7 +263,10 @@ def capture_kernel_inputs(problem, tau):
             recording(cuda_jacobi, "jacobi_eigh_lanes_wide") as jacobi_wide, \
             recording(bs_mod, "solve_bvp_fused") as bvp, \
             recording(bs_mod, "solve_block_tridiag_lanes_cuda") as blocktri:
-        solve_fluxes(problem, tau)
+        if phi is None:
+            solve_fluxes(problem, tau)
+        else:
+            solve_intensity(problem, tau, phi, probes_per_layer=True)
     return {"eig": eig.operands, "jacobi_wide": jacobi_wide.operands, "bvp": bvp.operands,
             "blocktri": blocktri.operands}
 
@@ -743,6 +808,54 @@ def phase_kernels(main_ops):
     ]
 
 
+def phase_intensity_kernels(kernels):
+    """Kernels 1 and 2 at the shapes of phase 8's intensity chunk (256
+    solves x 16 Fourier modes x 64 layers: kernel 1 at B = 262 144 lanes,
+    kernel 2 at B = 4096), against their plain versions and timed."""
+    import torch
+    from pythonic_disort_torch.ops.cuda_blocktri import solve_bvp_fused, solve_bvp_fused_plain
+    from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes, eig_stage_lanes_plain, jacobi_sweeps
+
+    log("phase 3: kernels 1 and 2 at the intensity chunk's shapes")
+    problem, tau, phi = intensity_problem(bench_arrays(INT_COLS, seed=7), torch.float32, "cuda")
+    ops = capture_kernel_inputs(problem, tau, phi)
+    del problem
+    At, Bt = ops["eig"]
+    n, _, B = At.shape
+    # the float64 plain stage on the card, in lanes chunks (cuSOLVER's limit)
+    Kp = torch.cat([eig_stage_lanes_plain(At[..., b:b + EIGH_CHUNK].double(), Bt[..., b:b + EIGH_CHUNK].double())[0]
+                    for b in range(0, B, EIGH_CHUNK)], dim=-1)
+    eig_abs, eig_rel = eig_checks(At, Bt, f"eig n={n} B={B} f32 (intensity chunk)", full=True, Kp=Kp)
+    del Kp
+    bops = ops["bvp"]
+    L, n2, _, Bb = bops[0].shape
+    bvp_abs, bvp_rel = bvp_checks(bops, f"bvp L={L} 2N={n2} B={Bb} f32 (intensity chunk)")
+
+    esz = At.element_size()
+    eig_ms = cuda_ms(lambda: eig_stage_lanes(At, Bt), 10)
+    eig_plain = cuda_ms(lambda: in_chunks(eig_stage_lanes_plain, At, Bt), 2)
+    M = torch.cat([congruence(At[..., b:b + EIGH_CHUNK], Bt[..., b:b + EIGH_CHUNK])
+                   for b in range(0, B, EIGH_CHUNK)], dim=-1)
+    eigh_ms = cuda_ms(lambda: in_chunks(lambda m: torch.linalg.eigh(m.permute(2, 0, 1)), M), 2)
+    del M
+    eig_bound, eig_by = bound_ms((2 * n * n + 4 * n * n + n) * B * esz, eig_flops(n, jacobi_sweeps(At.dtype)) * B,
+                                 "float32")
+    bvp_ms = cuda_ms(lambda: solve_bvp_fused(*bops), 10)
+    bvp_plain = cuda_ms(lambda: solve_bvp_fused_plain(*bops), 1)
+    bvp_bound, bvp_by = bound_ms((sum(o.numel() for o in bops) + bops[3].numel()) * esz,
+                                 bvp_flops(L, n2 // 2) * Bb, "float32")
+    log(f"  eig_stage n={n} B={B}: {eig_ms:.4f} ms (plain {eig_plain:.3f} ms, torch.linalg.eigh on M "
+        f"{eigh_ms:.3f} ms, bound {eig_bound:.4f} ms by {eig_by})")
+    log(f"  bvp_fused L={L} 2N={n2} B={Bb}: {bvp_ms:.4f} ms (plain {bvp_plain:.3f} ms, bound {bvp_bound:.4f} ms "
+        f"by {bvp_by})")
+    kernels[0]["other_shapes"].append(dict(
+        shape=f"n={n} B={B}", operands="intensity chunk (phase 8)", ms=eig_ms, plain_ms=eig_plain,
+        library_ms=eigh_ms, bound_ms=eig_bound, bound_by=eig_by, max_abs_err=eig_abs, max_err=eig_rel))
+    kernels[1]["other_shapes"] = [dict(
+        shape=f"L={L} 2N={n2} B={Bb}", operands="intensity chunk (phase 8)", ms=bvp_ms, plain_ms=bvp_plain,
+        bound_ms=bvp_bound, bound_by=bvp_by, max_abs_err=bvp_abs, max_err=bvp_rel)]
+
+
 # kernel 5's widths (n = N = NQuad/2) and kernel 6's (L, n, B, dtype) in
 # phase 3
 WIDE_JACOBI_N = (1, 3, 17, 31, 33, 34, 64, 128)
@@ -1037,21 +1150,12 @@ def phase_main_path(arrs, problem, tau, kernels):
     for lbl, a, b in zip(("fup", "fdn", "fdir"), ref, out):
         within(a, b[:nref].double().cpu().numpy(), lbl)
 
-    times = []
-    for _ in range(REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(N_CHUNKS):
-            solve_fluxes(problem, tau)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    best = min(times)
-    chunk_ms = 1e3 * best / N_CHUNKS
+    chunk_ms = best_ms(lambda: solve_fluxes(problem, tau), N_CHUNKS)
     eig_ms = kernels[0]["ms"] * launches["eig_stage"]
     bvp_ms = kernels[1]["ms"] * launches["bvp_fused"]
-    cols_s = N_CHUNKS * CHUNK_COLS / best
+    cols_s = CHUNK_COLS / chunk_ms * 1e3
     log(f"  steady state: {cols_s:.3f} columns/s ({N_CHUNKS} chunks best of {REPS}: "
-        f"{1e3 * best:.2f} ms); per chunk {chunk_ms:.3f} ms = eig kernel {eig_ms:.3f} + "
+        f"{N_CHUNKS * chunk_ms:.2f} ms); per chunk {chunk_ms:.3f} ms = eig kernel {eig_ms:.3f} + "
         f"BVP kernel {bvp_ms:.3f} + rest {chunk_ms - eig_ms - bvp_ms:.3f} ms")
     return chunk_ms
 
@@ -1100,13 +1204,13 @@ def phase_trace(run, what, wall_ms):
     return busy_ms, {name: us / 1e3 for name, us in per_name.items()}
 
 
-def within(a, b, label):
-    """|a - b| < 1e-3 x max(|a|, 1): the float32-against-float64 bound of the
-    main path, for one output of the single-column path."""
+def within(a, b, label, bound=1e-3, what="float64"):
+    """|a - b| < bound x max(|a|, 1): by default the float32-against-float64
+    bound of the main path (tests_tpu/test_tpu_production.py:139-154)."""
     scale = max(np.abs(a).max(), 1.0)
     d = np.abs(a - b).max()
-    log(f"  {label}: max |f32 - f64| = {d:.3e} (bound {1e-3 * scale:.3e})")
-    check(d < 1e-3 * scale, f"{label} within 1e-3 x max(|.|, 1) of float64")
+    log(f"  {label}: max |f32 - ref| = {d:.3e} (bound {bound * scale:.3e})")
+    check(np.isfinite(b).all() and d < bound * scale, f"{label} within {bound:g} x max(|.|, 1) of {what}")
 
 
 def run_golden(name, kwargs, deg_around_beam, dtype, device):
@@ -1620,6 +1724,124 @@ def phase_widths(kernels):
                 grad_ms)
 
 
+def best_ms(run, chunks, reps=REPS):
+    """Host-clock ms of ``chunks`` synchronized calls of ``run``, best of
+    ``reps``, per call."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            run()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0) / chunks)
+    return min(times)
+
+
+def launched(run, label, kernels_on, kernels_off):
+    """``run()`` once with the launch counts set to 0 just before it; checks
+    that ``kernels_on`` launched and ``kernels_off`` did not."""
+    import torch
+
+    reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"  launches in {label}: {launches}")
+    check(all(launches[k] > 0 for k in kernels_on) and all(launches[k] == 0 for k in kernels_off),
+          f"{label}: {', '.join(kernels_on)} launched, {', '.join(kernels_off)} not")
+    return out, launches
+
+
+def phase_intensity(kernels, card):
+    """Phase 8: the batched intensity path and a longwave (iso-source) chunk
+    in float32 on the card, against the port's float64 result on the CPU
+    for a subset of rows (the solves are independent)."""
+    import torch
+    from pythonic_disort_torch import (
+        solve_actinic, solve_batched, solve_fluxes, solve_intensity, u0_at, u_at, u_corrected_at)
+    from pythonic_disort_torch.parallel.batch import _check_probes_per_layer
+
+    t_phase = time.perf_counter()
+    by_name = {k["name"]: k for k in kernels}
+    others = [k for k in wrappers() if k not in ("eig_stage", "bvp_fused")]
+    S = INT_COLS * NBANDS
+    log(f"phase 8: batched intensity path, {INT_COLS} columns x {NBANDS} bands, L={NLAYERS}, NQuad={NQUAD}, "
+        f"NFourier={INT_NFOURIER}, NT-corrected, {len(INT_PHI)} azimuths, f32, cuda ({card})")
+    arrs = bench_arrays(INT_COLS, seed=7)
+    problem, tau, phi = intensity_problem(arrs, torch.float32, "cuda")
+
+    # (a) one probe per layer, the path bench.py times
+    probes = lambda: solve_intensity(problem, tau, phi, probes_per_layer=True)
+    u, launches = launched(probes, "(a) one intensity chunk, probes per layer", ("eig_stage", "bvp_fused"), others)
+    for k in ("eig_stage", "bvp_fused"):
+        by_name[k]["launches_intensity_chunk"] = launches[k]
+    check(u.shape == (S, NQUAD, NLAYERS, len(INT_PHI)) and torch.isfinite(u).all().item(),
+          f"u finite with shape ({S}, {NQUAD}, {NLAYERS}, {len(INT_PHI)})")
+    a_ms = best_ms(probes, INT_CHUNKS)
+    check_ms = best_ms(lambda: _check_probes_per_layer(problem.tau_arr, tau), 20)
+    log(f"  (a) {a_ms:.3f} ms per chunk ({INT_CHUNKS} chunks, best of {REPS}), "
+        f"{INT_COLS / a_ms * 1e3:.3f} intensity columns/s; the probe precondition check {check_ms:.4f} ms a call "
+        f"(one reduction, one host read); kernel 1 {by_name['eig_stage']['other_shapes'][-1]['ms']:.3f} ms + "
+        f"kernel 2 {by_name['bvp_fused']['other_shapes'][-1]['ms']:.3f} ms (phase 3)")
+    phase_trace(probes, "phase 8 (a), one intensity chunk, probes per layer", a_ms)
+
+    # (b) the general path: GC materialized, layer gathers in the evaluators
+    general = lambda: solve_intensity(problem, tau, phi)
+    u_gen, _ = launched(general, "(b) one intensity chunk, general path", ("eig_stage", "bvp_fused"), others)
+    within(u.double().cpu().numpy(), u_gen.double().cpu().numpy(), "(b) general path against (a)",
+           what="the probe path (a)")
+    del u_gen
+    b_ms = best_ms(general, INT_CHUNKS)
+    log(f"  (b) {b_ms:.3f} ms per chunk, {INT_COLS / b_ms * 1e3:.3f} intensity columns/s")
+    phase_trace(general, "phase 8 (b), one intensity chunk, general path", b_ms)
+
+    sol = solve_batched(problem)
+    u_raw, u0 = u_at(sol, tau, phi), u0_at(sol, tau)
+    del sol
+    t0 = time.perf_counter()
+    p64, tau64, phi64 = intensity_problem(rows(arrs, INT_REF_ROWS), torch.float64, "cpu")
+    sol64 = solve_batched(p64)
+    ref = [u_corrected_at(sol64, tau64, phi64), u_at(sol64, tau64, phi64), u0_at(sol64, tau64)]
+    log(f"  float64 CPU reference ({INT_REF_ROWS} solves x {INT_NFOURIER} modes) in {time.perf_counter() - t0:.1f} s")
+    for (lbl, bound), a, b in zip((("NT-corrected u", 2e-3), ("u (u_at)", 1e-3), ("u0", 1e-3)), ref,
+                                  (u, u_raw, u0)):
+        within(a.numpy(), b[:INT_REF_ROWS].double().cpu().numpy(), f"{lbl} ({INT_REF_ROWS} rows)", bound)
+    del u, u_raw, u0, problem
+
+    # (c) longwave: no beam, a linear iso source in every layer, surface emission
+    log(f"  (c) longwave chunk: {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}, NQuad={NQUAD}, NFourier=1, "
+        f"iso source (2 coefficients), surface emission, delta-M, no beam")
+    lw = longwave_arrays(CHUNK_COLS)
+    p_flux, lw_tau = longwave_problem(lw, torch.float32, "cuda", only_flux=True)
+    p_act, _ = longwave_problem(lw, torch.float32, "cuda", only_flux=False)
+    fluxes = lambda: solve_fluxes(p_flux, lw_tau)
+    actinic = lambda: solve_actinic(p_act, lw_tau)
+    f_out, launches = launched(fluxes, "(c) one longwave flux chunk", ("eig_stage", "bvp_fused"), others)
+    for k in ("eig_stage", "bvp_fused"):
+        by_name[k]["launches_longwave_chunk"] = launches[k]
+    act_out, _ = launched(actinic, "(c) one longwave actinic chunk", ("eig_stage", "bvp_fused"), others)
+    t0 = time.perf_counter()
+    lw64 = rows(lw, LW_REF_ROWS)
+    ref = [*solve_fluxes(*longwave_problem(lw64, torch.float64, "cpu", only_flux=True)),
+           *solve_actinic(*longwave_problem(lw64, torch.float64, "cpu", only_flux=False))]
+    log(f"  float64 CPU reference ({LW_REF_ROWS} solves) in {time.perf_counter() - t0:.1f} s")
+    check(ref[2].abs().max().item() == 0 and ref[0].abs().min().item() > 0,
+          "longwave: no direct beam, upward flux everywhere")
+    for lbl, a, b in zip(("longwave fup", "longwave fdn", "longwave fdir", "longwave actinic up",
+                          "longwave actinic down"), ref, (*f_out, *act_out)):
+        within(a.numpy(), b[:LW_REF_ROWS].double().cpu().numpy(), f"{lbl} ({LW_REF_ROWS} rows)")
+    c_ms = best_ms(fluxes, N_CHUNKS)
+    c_act_ms = best_ms(actinic, N_CHUNKS)
+    log(f"  (c) longwave fluxes {c_ms:.3f} ms per chunk ({CHUNK_COLS / c_ms * 1e3:.3f} columns/s), "
+        f"actinic fluxes {c_act_ms:.3f} ms per chunk ({N_CHUNKS} chunks, best of {REPS})")
+    phase_trace(fluxes, "phase 8 (c), one longwave flux chunk", c_ms)
+    phase_trace(actinic, "phase 8 (c), one longwave actinic chunk", c_act_ms)
+    log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main():
     import torch
 
@@ -1629,19 +1851,21 @@ def main():
     from pythonic_disort_torch import solve_fluxes      # fails outside the repository
 
     log("phase 1: device")
-    phase_device()
+    card = phase_device()
     log("phase 2: build")
     phase_build()
     arrs = bench_arrays(CHUNK_COLS)
     problem, tau = make_problem(arrs, torch.float32, "cuda")
     main_ops = capture_kernel_inputs(problem, tau)
     ops48, kernels = phase_kernels(main_ops)
+    phase_intensity_kernels(kernels)
     kernels += phase_wide_kernels() + [phase_bvp_wide(ops48)]
     chunk_ms = phase_main_path(arrs, problem, tau, kernels)
     phase_trace(lambda: solve_fluxes(problem, tau), "phase 4, one main-path chunk", chunk_ms)
     phase_single_column(kernels)
     phase_gradient(arrs, kernels, chunk_ms)
     phase_widths(kernels)
+    phase_intensity(kernels, card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

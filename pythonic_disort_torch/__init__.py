@@ -1,8 +1,9 @@
 """pythonic-disort-torch: the PyTorch/CUDA port of pythonic-disort-tpu.
 
 The discrete-ordinates radiative-transfer solver on an NVIDIA H100, on
-two paths: the batched flux solve over columns x bands (`solve_fluxes`)
-and the single-column solve behind the drop-in `pydisort` API.  The JAX
+two paths: the batched solve over columns x bands (`solve_fluxes`,
+`solve_intensity`, `solve_actinic`) and the single-column solve behind
+the drop-in `pydisort` API.  The JAX
 package beside it is the reference; this package imports neither JAX nor
 it.  Four stages are CUDA kernels written for Hopper (``csrc/``), built
 with nvcc at first use: the fused eigen stage (both paths), the fused
@@ -24,7 +25,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 from .convert import problem_from_arrays, solution_to_arrays  # noqa: E402
 from .models.disort.api import build_problem, pydisort  # noqa: E402
-from .models.disort.batch_solve import solve_batched  # noqa: E402
+from .models.disort.batch_solve import solve_batched, solve_batched_probes  # noqa: E402
 from .models.disort.solve import solve  # noqa: E402
 from .models.disort.types import (  # noqa: E402
     DisortConfig, DisortProblem, DisortSolution,
@@ -33,14 +34,16 @@ from .ops.blocktri import solve_block_tridiag  # noqa: E402
 from .ops.eig import disort_eigh  # noqa: E402
 from .ops.jacobi import jacobi_eigh  # noqa: E402
 from .parallel.batch import (  # noqa: E402
-    fluxes_at, make_batched_problem, solve_fluxes,
+    actinic_at, fluxes_at, make_batched_problem, solve_actinic, solve_fluxes, solve_intensity, u0_at, u_at,
+    u_corrected_at,
 )
 
 __version__ = "0.1.0"
 
 __all__ = [
     "DisortConfig", "DisortProblem", "DisortSolution",
-    "make_batched_problem", "solve_batched", "fluxes_at", "solve_fluxes",
+    "make_batched_problem", "solve_batched", "solve_batched_probes", "fluxes_at", "solve_fluxes",
+    "u0_at", "u_at", "u_corrected_at", "solve_intensity", "actinic_at", "solve_actinic",
     "build_problem", "pydisort", "solve", "solve_block_tridiag", "disort_eigh", "jacobi_eigh",
     "problem_from_arrays", "solution_to_arrays",
 ]

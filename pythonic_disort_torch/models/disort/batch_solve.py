@@ -1,7 +1,9 @@
-"""Batched discrete-ordinates flux solve, end to end in lanes layout.
+"""Batched discrete-ordinates solve, end to end in lanes layout.
 
 Counterpart of ``pythonic_disort_tpu/models/disort/batch_solve.py::
-solve_batched`` on its flux-only path.  Every tensor a kernel consumes
+solve_batched``: every feature of the single-column solve (beam,
+isotropic internal source, BDRF, delta-M, NFourier > 1, fluxes and
+intensities) for a batch of solves.  Every tensor a kernel consumes
 keeps the batch last, ``(..., Q)``, with the eigen-stage lane order
 ``q = (m, l, s)`` (mode-major, solve fastest), so per-mode slices are
 contiguous and the reshape to the BVP layout ``(L, ..., NF*S)`` never
@@ -19,23 +21,22 @@ crosses the lane dimension:
   block-Thomas solve (`ops.cuda_blocktri.solve_block_tridiag_lanes_cuda`,
   kernel 6 there);
 - the flux quadrature ``(mu W) @ G C`` is folded into per-layer tables
-  (``fvec_*``, ``fb_*``), so ``G`` and ``GC`` are never materialized.
+  (``fvec_*``, ``fb_*``, ``fi_*``), so ``G`` is never materialized and
+  ``GC`` only for intensity output (``only_flux=False``);
+- `solve_batched_probes` contracts the intensity modes at one probe per
+  layer in lanes, without ``GC``.
 """
 
 from __future__ import annotations
 
-import functools
 import math
-from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ...ops.blocktri import assemble_bvp_blocks
 from ...ops.cuda_blocktri import FUSED_BLOCK_MAX, solve_block_tridiag_lanes_cuda, solve_bvp_fused
 from ...ops.eig import disort_eigh_lanes
-from ...ops.legendre import normalized_assoc_legendre_host
-from ...ops.quadrature import double_gauss
+from .solve import _power_ladder, _tables, affine_transform_poly_coeffs, iso_particular_tensor, iso_poly_eval
 from .types import DisortProblem, DisortSolution
 
 
@@ -44,58 +45,39 @@ def _mat_lanes(A, x):
     return torch.einsum("ikq,kq->iq", A, x)
 
 
-class _Tables(NamedTuple):
-    mu: torch.Tensor             # (N,) quadrature nodes
-    w: torch.Tensor              # (N,) weights
-    leg_weights: torch.Tensor    # (NLeg_all,) 2l + 1
-    lam_mu: torch.Tensor         # (NF, NLeg, N) Legendre basis at the nodes
-    mode_mask: torch.Tensor      # (NF, NLeg) l >= m
-    parity: torch.Tensor         # (NF, NLeg) (-1)^(l - m) where l >= m
-    bdrf_delta: torch.Tensor     # (NF,) 2 for m = 0, else 1
+def solve_batched(problem: DisortProblem) -> DisortSolution:
+    """Solve a batch of atmospheres; all tensors carry a leading S.
 
-
-@functools.lru_cache(maxsize=None)
-def _tables(nquad, nleg, nleg_all, nfourier, dtype, device) -> _Tables:
-    """Tables that depend on the configuration alone, built on the host once
-    per (configuration, dtype, device) and kept there: a copy from pageable
-    host memory synchronizes the stream, so a solve makes none."""
-    const = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-    mu, w = double_gauss(nquad)
-    ms = np.arange(nfourier)[:, None]
-    lseq = np.arange(nleg)[None, :]
-    return _Tables(
-        mu=const(mu),
-        w=const(w),
-        leg_weights=const(2 * np.arange(nleg_all) + 1),
-        lam_mu=const(normalized_assoc_legendre_host(nfourier, nleg, mu)),
-        mode_mask=const((lseq >= ms).astype(np.float64)),
-        parity=const(np.where(lseq >= ms, (-1.0) ** (lseq - ms), 0.0)),
-        bdrf_delta=const(np.where(np.arange(nfourier) == 0, 2.0, 1.0)),
-    )
-
-
-def solve_batched(problem: DisortProblem, boundary_probe_tau=None) -> DisortSolution:
-    """Solve a batch of atmospheres for fluxes; all tensors carry a leading S.
-
-    Returns a batched `DisortSolution` with ``G = GC = None``; the flux
-    evaluator (`eval.fluxes_all`) reads the ``fvec_*``/``fb_*`` tables.
+    Returns a batched `DisortSolution` with ``G = None``; ``GC`` (S, NF, L,
+    4N^2) is materialized for intensity output only (``only_flux=False``).
+    The flux evaluator (`eval.fluxes_all`) reads the ``fvec_*``/``fb_*``/
+    ``fi_*`` tables.
     """
+    return _solve(problem)[0]
+
+
+def solve_batched_probes(problem: DisortProblem, probe_tau: torch.Tensor):
+    """Solve a batch and contract the intensity modes at one probe per layer.
+
+    ``probe_tau`` (S, L): probe ``t`` lies in layer ``t``, (tau_{t-1},
+    tau_t] (checked by `parallel.batch.solve_intensity`).  The layer
+    gather of the evaluators is then the identity, so the modes are
+    contracted from the lanes tensors in place and ``GC`` is never
+    materialized.  Returns ``(solution, um)``; ``um`` (S, NF, 2N, L) holds
+    the Fourier modes of u at the probes before the rescale factor.
+    """
+    return _solve(problem, probe_tau)
+
+
+def _solve(problem: DisortProblem, probe_tau=None):
+    """The batched solve; ``(solution, um or None)``."""
     cfg = problem.config
-    if boundary_probe_tau is not None:
-        raise NotImplementedError(
-            "boundary_probe_tau (intensity at layer probes) is not ported yet: ROADMAP queue 1, module 5")
-    if cfg.has_iso:
-        raise NotImplementedError(
-            "isotropic internal sources are not ported yet: ROADMAP queue 1, module 4")
-    if not cfg.only_flux:
-        raise NotImplementedError(
-            "intensity output (only_flux=False) is not ported yet: ROADMAP queue 1, module 4")
     if cfg.has_beam and problem.lam_mu0 is None:
         raise NotImplementedError(
             "the on-device Legendre table at -mu0 is not ported: build the problem with "
             "make_batched_problem, which tabulates it on the host")
     N, NF, L = cfg.n, cfg.nfourier, cfg.nlayers
-    NLeg, NB = cfg.nleg, cfg.nbdrf
+    NLeg, NB, Ns = cfg.nleg, cfg.nbdrf, cfg.nscoeffs
 
     tau_arr = problem.tau_arr                                    # (S, L)
     dtype, device = tau_arr.dtype, tau_arr.device
@@ -125,10 +107,24 @@ def solve_batched(problem: DisortProblem, boundary_probe_tau=None) -> DisortSolu
         scaled_omega = omega_arr
     weighted_scaled_leg = scaled_leg * tab.leg_weights[None, None, :NLeg]
 
+    if cfg.has_iso:
+        if cfg.has_deltam:
+            tau_tops = torch.cat([zeros_s1, tau_arr[:, :-1]], dim=-1)
+            translations = scaled_tau_with_0[:, :-1] - scale_tau * tau_tops
+            scaled_s_poly = (
+                affine_transform_poly_coeffs(problem.s_poly_coeffs, scale_tau, translations)
+                / scale_tau[..., None]
+            ) * (1.0 - omega_arr)[..., None]
+        else:
+            scaled_s_poly = problem.s_poly_coeffs * (1.0 - omega_arr)[..., None]
+
     # ---- source rescaling for conditioning (reference pydisort.py:348-373) ----
     b_pos, b_neg = problem.b_pos, problem.b_neg                  # (S, N, NF)
-    rescale = torch.stack(
-        [I0, b_pos.amax(dim=(1, 2)), b_neg.amax(dim=(1, 2))], dim=-1).amax(dim=-1)
+    candidates = [I0, b_pos.amax(dim=(1, 2)), b_neg.amax(dim=(1, 2))]
+    if cfg.has_iso:
+        taup = _power_ladder(scaled_tau_with_0[:, -1], Ns)      # (S, Ns), 0^0 = 1
+        candidates += [scaled_s_poly[:, 0, 0], (scaled_s_poly[:, -1, :] * taup).sum(dim=-1)]
+    rescale = torch.stack(candidates, dim=-1).amax(dim=-1)
     rescale = torch.where(rescale > 0, rescale, torch.ones_like(rescale))
     I0 = I0 / rescale
     b_pos = b_pos / rescale[:, None, None]
@@ -189,6 +185,17 @@ def solve_batched(problem: DisortProblem, boundary_probe_tau=None) -> DisortSolu
     else:
         B_l = torch.zeros((2 * N, NF * LS), dtype=dtype, device=device)
 
+    # ---- isotropic-source particular tensor (mode 0, its LS lanes first) ----
+    if cfg.has_iso:
+        QM = _mat_lanes(Q[..., :LS], M_inv[:, None].expand(N, LS))
+        G_inv_mu_inv = torch.cat([QM, -QM], dim=0).T              # (LS, 2N)
+        s_desc = (scaled_s_poly / rescale[:, None, None]).flip(-1).transpose(0, 1).reshape(LS, Ns)
+        mathscr_b = iso_particular_tensor(
+            G_l[..., :LS].permute(2, 0, 1), K_full[:, :LS].T, G_inv_mu_inv, s_desc)
+        mathscr_b = mathscr_b.reshape(L, S, 2 * N, Ns).transpose(0, 1)   # (S, L, 2N, Ns)
+    else:
+        mathscr_b = torch.zeros((S, L, 2 * N, 1), dtype=dtype, device=device)
+
     # ---- BDRF operators (reference _solve_for_coeffs.py:118-135) ----
     mu_w = mu * w
     NFS = NF * S
@@ -231,12 +238,27 @@ def solve_batched(problem: DisortProblem, boundary_probe_tau=None) -> DisortSolu
               if has_bdrf else 0.0)
         rhs_bot = rhs_bot + (X_bdrf_l.reshape(N, NF, S) + RB - B5[:N, :, -1, :]) \
             * beam_decay_bot[None, None, :]
+    if cfg.has_iso:
+        # mode 0 only; new tensors, not writes into views of b_neg/b_pos
+        v_top = iso_poly_eval(mathscr_b[:, 0], zeros_s1[:, 0])                 # (S, 2N)
+        v_bot = iso_poly_eval(mathscr_b[:, -1], scaled_tau_with_0[:, -1])
+        top0 = -v_top[:, N:]
+        bot0 = -v_bot[:, :N]
+        if has_bdrf:
+            bot0 = bot0 + torch.einsum("sij,sj->si", R_pad[:, 0], v_bot[:, N:])
+        rhs_top = torch.cat([rhs_top[:, :1] + top0.T[:, None], rhs_top[:, 1:]], dim=1)
+        rhs_bot = torch.cat([rhs_bot[:, :1] + bot0.T[:, None], rhs_bot[:, 1:]], dim=1)
     if L > 1:
         cont_rhs = torch.zeros((L - 1, 2 * N, NF, S), dtype=dtype, device=device)
         if cfg.has_beam:
             bdecay = torch.exp(-scaled_tau_with_0[:, 1:-1] / mu0[:, None])   # (S, L-1)
             diffB = (B5[:, :, 1:, :] - B5[:, :, :-1, :]).permute(2, 0, 1, 3)
             cont_rhs = cont_rhs + diffB * bdecay.T[:, None, None, :]
+        if cfg.has_iso:
+            tb = scaled_tau_with_0[:, 1:-1]                                  # (S, L-1)
+            jump = iso_poly_eval(mathscr_b[:, 1:], tb) - iso_poly_eval(mathscr_b[:, :-1], tb)
+            cont_rhs = torch.cat([cont_rhs[:, :, :1] + jump.permute(1, 2, 0)[:, :, None],
+                                  cont_rhs[:, :, 1:]], dim=2)
         rhs_t = torch.cat(
             [torch.cat([rhs_top[None], cont_rhs[:, N:]], dim=0),
              torch.cat([cont_rhs[:, :N], rhs_bot[None]], dim=0)], dim=1,
@@ -251,6 +273,29 @@ def solve_batched(problem: DisortProblem, boundary_probe_tau=None) -> DisortSolu
         C_t = solve_block_tridiag_lanes_cuda(
             *assemble_bvp_blocks(Gt, decay_t, Bt_rows), rhs_t.contiguous())
 
+    # ---- intensity modes at one probe per layer, contracted in lanes ----
+    # um[t, i, (m, s)] = sum_j G[t, i, j] C[t, j] exp(K_j dt) (+ beam, iso):
+    # probe t lies in layer t, so the evaluators' layer gather is the
+    # identity and the contraction reads Gt and C_t in place.
+    um = None
+    if probe_tau is not None:
+        top_b = scaled_tau_with_0[:, :-1]                        # (S, L)
+        bot_b = scaled_tau_with_0[:, 1:]
+        st_b = bot_b - (tau_arr - probe_tau) * scale_tau if cfg.has_deltam else probe_tau
+        Kr = K_full.reshape(2 * N, NF, L, S)
+        # exponents <= 0: K[:N] < 0 anchored at the layer top, K[N:] > 0 at the bottom
+        expo_b = torch.exp(torch.cat([Kr[:N] * (st_b - top_b).T[None, None],
+                                      Kr[N:] * (st_b - bot_b).T[None, None]], dim=0))
+        expo_t = expo_b.permute(2, 0, 1, 3).reshape(L, 2 * N, NFS)
+        um5 = torch.einsum("tijq,tjq->tiq", Gt, C_t * expo_t).reshape(L, 2 * N, NF, S)
+        if cfg.has_beam:
+            bexp = torch.exp(-st_b / mu0[:, None]).T             # (L, S)
+            um5 = um5 + B5.permute(2, 0, 1, 3) * bexp[:, None, None, :]
+        if cfg.has_iso:
+            v_iso = iso_poly_eval(mathscr_b, st_b).permute(1, 2, 0)   # (L, 2N, S)
+            um5 = torch.cat([um5[:, :, :1] + v_iso[:, :, None], um5[:, :, 1:]], dim=2)
+        um = um5.permute(3, 2, 1, 0)                              # (S, NF, 2N, L)
+
     # ---- flux tables: quadrature contraction folded in lanes ----
     C0 = C_t.reshape(L, 2 * N, NF, S)[:, :, 0, :]                # (L, 2N, S)
     G0t = Gt.reshape(L, 2 * N, 2 * N, NF, S)[..., 0, :]          # (L, 2N, 2N, S)
@@ -258,15 +303,21 @@ def solve_batched(problem: DisortProblem, boundary_probe_tau=None) -> DisortSolu
     fvec_dn = (torch.einsum("i,lijs->ljs", mu_w, G0t[:, N:]) * C0).permute(2, 0, 1)
     fb_up = torch.einsum("i,ils->sl", mu_w, B5[:N, 0])           # (S, L)
     fb_dn = torch.einsum("i,ils->sl", mu_w, B5[N:, 0])
-    no_iso = torch.zeros((S, L, 1), dtype=dtype, device=device)
+
+    # GC for the general intensity evaluators, stored layer-flattened
+    # (S, NF, L, 4N^2); not on the flux-only path nor with probes
+    GC = None
+    if not cfg.only_flux and probe_tau is None:
+        GC5 = Gt.reshape(L, 2 * N, 2 * N, NF, S) * C_t.reshape(L, 1, 2 * N, NF, S)
+        GC = GC5.permute(4, 3, 0, 1, 2).reshape(S, NF, L, 4 * N * N)
 
     return DisortSolution(
         config=cfg,
         G=None,
         K=K_full.reshape(2 * N, NF, L, S).permute(3, 1, 2, 0),
-        GC=None,
+        GC=GC,
         B=B5.permute(3, 1, 2, 0),                                # (S, NF, L, 2N)
-        mathscr_b=torch.zeros((S, L, 2 * N, 1), dtype=dtype, device=device),
+        mathscr_b=mathscr_b,
         tau_arr=tau_arr,
         scaled_tau_with_0=scaled_tau_with_0,
         scale_tau=scale_tau,
@@ -285,6 +336,6 @@ def solve_batched(problem: DisortProblem, boundary_probe_tau=None) -> DisortSolu
         fvec_dn=fvec_dn,
         fb_up=fb_up,
         fb_dn=fb_dn,
-        fi_up=no_iso,
-        fi_dn=no_iso,
-    )
+        fi_up=torch.einsum("i,slik->slk", mu_w, mathscr_b[:, :, :N]),
+        fi_dn=torch.einsum("i,slik->slk", mu_w, mathscr_b[:, :, N:]),
+    ), um

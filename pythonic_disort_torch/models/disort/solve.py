@@ -9,7 +9,7 @@ kernel 5 at odd N and N > 32) and one block-tridiagonal solve for all
 modes (`ops.blocktri.solve_block_tridiag`: the generic block-Thomas CUDA
 kernel 3, or kernel 6 for NQuad > 64).  The tensors
 of the problem carry no batch axis here; `batch_solve.solve_batched` is
-the batched flux path.
+the batched path.
 
 Tables that depend on the configuration alone are cached per
 (configuration, dtype, device), so a solve copies nothing from the host
@@ -27,14 +27,44 @@ import torch
 
 from ...ops.blocktri import solve_block_tridiag
 from ...ops.eig import disort_eigh
-from ...ops.legendre import normalized_assoc_legendre
-from .batch_solve import _tables
+from ...ops.legendre import normalized_assoc_legendre, normalized_assoc_legendre_host
+from ...ops.quadrature import double_gauss
 from .types import DisortProblem, DisortSolution
 
 
 def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(..., n, k) @ (..., k) -> (..., n)."""
     return torch.matmul(A, x.unsqueeze(-1)).squeeze(-1)
+
+
+class _Tables(NamedTuple):
+    mu: torch.Tensor             # (N,) quadrature nodes
+    w: torch.Tensor              # (N,) weights
+    leg_weights: torch.Tensor    # (NLeg_all,) 2l + 1
+    lam_mu: torch.Tensor         # (NF, NLeg, N) Legendre basis at the nodes
+    mode_mask: torch.Tensor      # (NF, NLeg) l >= m
+    parity: torch.Tensor         # (NF, NLeg) (-1)^(l - m) where l >= m
+    bdrf_delta: torch.Tensor     # (NF,) 2 for m = 0, else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(nquad, nleg, nleg_all, nfourier, dtype, device) -> _Tables:
+    """Tables that depend on the configuration alone, built on the host once
+    per (configuration, dtype, device) and kept there: a copy from pageable
+    host memory synchronizes the stream, so a solve makes none."""
+    const = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    mu, w = double_gauss(nquad)
+    ms = np.arange(nfourier)[:, None]
+    lseq = np.arange(nleg)[None, :]
+    return _Tables(
+        mu=const(mu),
+        w=const(w),
+        leg_weights=const(2 * np.arange(nleg_all) + 1),
+        lam_mu=const(normalized_assoc_legendre_host(nfourier, nleg, mu)),
+        mode_mask=const((lseq >= ms).astype(np.float64)),
+        parity=const(np.where(lseq >= ms, (-1.0) ** (lseq - ms), 0.0)),
+        bdrf_delta=const(np.where(np.arange(nfourier) == 0, 2.0, 1.0)),
+    )
 
 
 class _PolyTables(NamedTuple):
@@ -67,15 +97,17 @@ def _poly_tables(nc: int, dtype, device) -> _PolyTables:
 
 
 def _power_ladder(x: torch.Tensor, count: int) -> torch.Tensor:
-    """``x^0 .. x^(count-1)`` on a new last axis, by a cumulative product.
+    """``x^0 .. x^(count-1)`` on a new last axis, by repeated products.
 
     Not ``pow``: it is exp(p log x) on some back ends, NaN for negative
     bases and for 0^0, and both occur (negative delta-M shifts; tau = 0).
+    Not ``cumprod`` either: on the card its scan over a short last axis
+    took 14 of a longwave chunk's 21 ms (H100, ``chip_smoke.py`` phase 8).
     """
-    ones = torch.ones_like(x)[..., None]
-    if count == 1:
-        return ones
-    return torch.cat([ones, torch.cumprod(x[..., None].expand(x.shape + (count - 1,)), dim=-1)], dim=-1)
+    powers = [torch.ones_like(x)]
+    for _ in range(count - 1):
+        powers.append(powers[-1] * x)
+    return torch.stack(powers, dim=-1)
 
 
 def affine_transform_poly_coeffs(poly_coeffs, a_arr, b_arr):
@@ -109,9 +141,8 @@ def iso_particular_tensor(G0, K0, G_inv_mu_inv, s_poly_desc):
     """
     ns = s_poly_desc.shape[-1]
     tab = _poly_tables(ns, s_poly_desc.dtype, s_poly_desc.device)
-    K_inv = 1.0 / K0
     # K_invP[l, k, p] = K_inv^(p+1)
-    K_invP = torch.cumprod(K_inv[:, :, None].expand(K_inv.shape + (ns,)), dim=-1)
+    K_invP = _power_ladder(1.0 / K0, ns + 1)[..., 1:]
     # weighted_a[l, i] = s_desc[l, i] * (n - i)!
     weighted_a = s_poly_desc * tab.fact_rev[None, :]
     lower_tri = weighted_a[:, tab.take_idx].reshape(-1, ns, ns) * tab.tri_mask[None]   # (L, i, p)

@@ -8,8 +8,9 @@ the scattering kernels use); entries with ``l < m`` are exactly zero.
 `normalized_assoc_legendre` evaluates the table on the device of ``x``
 (the single-column solve calls it at the nodes and at ``-mu0`` together);
 `normalized_assoc_legendre_host` is its NumPy twin for points known when
-a problem is built.  `legendre_series` evaluates ``sum_l c_l P_l(x)`` by
-Clenshaw's recurrence.
+a problem is built.  `legendre_series_bcast` evaluates ``sum_l c_l P_l(x)``
+by Clenshaw's recurrence, a series per batch element; `legendre_series`
+every series at every point.
 """
 
 from __future__ import annotations
@@ -102,18 +103,25 @@ def normalized_assoc_legendre(nmodes: int, ndeg: int, x: torch.Tensor) -> torch.
 
 
 def legendre_series(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``f_b(x) = sum_l coeffs[b, l] P_l(x)`` by Clenshaw's recurrence.
+    """``f_b(x) = sum_l coeffs[b, l] P_l(x)`` for every series b and point x.
 
     ``coeffs``: (..., ndeg); ``x``: any shape.  Returns
     ``coeffs.shape[:-1] + x.shape``.
     """
+    lead = coeffs.shape[:-1]
+    return legendre_series_bcast(coeffs.reshape(lead + (1,) * x.dim() + coeffs.shape[-1:]), x)
+
+
+def legendre_series_bcast(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``sum_l coeffs[..., l] P_l(x)`` by Clenshaw's recurrence, with
+    ``coeffs[..., l]`` broadcast against ``x``: a series per batch element,
+    e.g. coeffs (S, L, 1, 1, ndeg) and x (S, 1, K, P) give (S, L, K, P)."""
     ndeg = coeffs.shape[-1]
-    c = coeffs.reshape(-1, ndeg)
-    xf = x.reshape(1, -1)
-    b1 = torch.zeros((c.shape[0], xf.shape[1]), dtype=x.dtype, device=x.device)
+    shape = torch.broadcast_shapes(coeffs.shape[:-1], x.shape)
+    b1 = torch.zeros(shape, dtype=x.dtype, device=x.device)
     b2 = torch.zeros_like(b1)
     for ell in range(ndeg - 1, -1, -1):
         alpha = (2.0 * ell + 1.0) / (ell + 1.0)
         beta = (ell + 1.0) / (ell + 2.0)
-        b1, b2 = c[:, ell:ell + 1] + alpha * xf * b1 - beta * b2, b1
-    return b1.reshape(coeffs.shape[:-1] + x.shape)
+        b1, b2 = coeffs[..., ell] + alpha * x * b1 - beta * b2, b1
+    return b1

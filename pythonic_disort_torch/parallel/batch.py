@@ -1,19 +1,25 @@
-"""Batched (columns x bands) flux solves: the port's production entry points.
+"""Batched (columns x bands) solves: the port's production entry points.
 
-Counterpart of ``pythonic_disort_tpu/parallel/batch.py``
-(``make_batched_problem``, ``fluxes_at``, ``solve_fluxes``).  The batch
-axis is written out as the leading axis of every tensor.  Problems are
+Counterpart of ``pythonic_disort_tpu/parallel/batch.py``: fluxes
+(``solve_fluxes``), the zeroth intensity mode (``u0_at``), full and
+NT-corrected intensities (``solve_intensity``, ``u_at``,
+``u_corrected_at``) and diffuse actinic fluxes (``solve_actinic``).  The
+batch axis is written out as the leading axis of every tensor, and the
+evaluators run on the whole batch at once.  Problems are
 built on ``cuda`` unless the caller passes ``device="cpu"``; without a
 card and without that request they raise rather than run on the CPU.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from ..models.disort import eval as ev
-from ..models.disort.batch_solve import solve_batched
+from ..models.disort import nt
+from ..models.disort.batch_solve import solve_batched, solve_batched_probes
 from ..models.disort.types import DisortConfig, DisortProblem
 from ..ops.legendre import normalized_assoc_legendre_host
 
@@ -90,18 +96,109 @@ def make_batched_problem(
     )
 
 
-def fluxes_at(sol, tau):
-    """(flux_up, flux_down_diffuse, flux_down_direct), each (B, Ntau).
+def _on(like, x):
+    """``x`` as a tensor of the dtype and device of ``like`` (a problem or a
+    solution).  Probe depths and azimuths are best tensors there already:
+    an array is copied over first, and that copy synchronizes the stream."""
+    return torch.as_tensor(x, dtype=like.tau_arr.dtype, device=like.tau_arr.device)
 
-    ``tau`` is best a tensor on the solution's device: an array is copied
-    over first, and that copy synchronizes the stream.
+
+def _with_gc(sol):
+    if sol.GC is None:
+        raise ValueError("intensity output needs a solution of a config with only_flux=False")
+    return sol
+
+
+def fluxes_at(sol, tau):
+    """(flux_up, flux_down_diffuse, flux_down_direct), each (B, Ntau)."""
+    return ev.fluxes_all(sol, _on(sol, tau))
+
+
+def u0_at(sol, tau):
+    """Zeroth Fourier mode of the intensity: (B, 2N, Ntau)."""
+    return ev.u0(_with_gc(sol), _on(sol, tau))
+
+
+def u_at(sol, tau, phi):
+    """Full intensity: (B, 2N, Ntau, Nphi); ``tau`` (B, Ntau), ``phi`` (B, Nphi)."""
+    return ev.u(_with_gc(sol), _on(sol, tau), _on(sol, phi))
+
+
+def u_corrected_at(sol, tau, phi):
+    """Nakajima-Tanaka corrected intensity: (B, 2N, Ntau, Nphi).
+
+    The reference's intensity output under ``NT_cor=True`` (reference
+    ``pydisort.py:643-698``): `u_at` plus the TMS/IMS correction, both
+    evaluated on the whole batch.
     """
-    tau = torch.as_tensor(tau, dtype=sol.tau_arr.dtype, device=sol.tau_arr.device)
-    return ev.fluxes_all(sol, tau)
+    return nt.u_corrected(_with_gc(sol), _on(sol, tau), _on(sol, phi))
 
 
 def solve_fluxes(problem: DisortProblem, tau_eval):
     """Batched solve + flux evaluation at ``tau_eval`` (B, Ntau), a tensor
-    on the problem's device (see `fluxes_at`)."""
+    on the problem's device (see `_on`)."""
     _device(problem.tau_arr.device)
     return fluxes_at(solve_batched(problem), tau_eval)
+
+
+def _check_probes_per_layer(tau_arr, tau_eval):
+    """Raise ``ValueError`` unless probe ``t`` of every solve lies in layer
+    ``t``: tau_eval (B, L) with tau_{t-1} < tau_eval[:, t] <= tau_t (the
+    top of layer 0 included).  On the card: one reduction and one host
+    read."""
+    if tau_eval.shape != tau_arr.shape:
+        raise ValueError(
+            f"probes_per_layer needs one probe per layer: tau_eval {tuple(tau_eval.shape)}, "
+            f"tau_arr {tuple(tau_arr.shape)}")
+    tops = torch.cat([torch.zeros_like(tau_arr[:, :1]), tau_arr[:, :-1]], dim=1)
+    above = tau_eval > tops
+    above[:, 0] |= tau_eval[:, 0] == 0
+    if not bool((above & (tau_eval <= tau_arr)).all()):
+        raise ValueError("probes_per_layer needs probe t inside layer t: tau_{t-1} < tau_eval[:, t] <= tau_t")
+
+
+def solve_intensity(problem: DisortProblem, tau_eval, phi_eval, nt_correct=None, probes_per_layer=False):
+    """Batched solve + full intensity: (B, 2N, Ntau, Nphi).
+
+    ``nt_correct`` (default ``problem.config.nt_correct``) adds the
+    Nakajima-Tanaka TMS/IMS corrections.  ``probes_per_layer``: ``tau_eval``
+    holds one probe per layer, probe ``t`` inside layer ``t`` (checked,
+    `_check_probes_per_layer`); the Fourier modes are then contracted inside
+    the solve (`solve_batched_probes`) and ``GC`` is never built.
+    Otherwise the solution needs ``only_flux=False``.
+    """
+    _device(problem.tau_arr.device)
+    if nt_correct is None:
+        nt_correct = problem.config.nt_correct
+    tau_eval = _on(problem, tau_eval)
+    phi_eval = _on(problem, phi_eval)
+    if not probes_per_layer:
+        sol = solve_batched(problem)
+        return (u_corrected_at if nt_correct else u_at)(sol, tau_eval, phi_eval)
+    _check_probes_per_layer(problem.tau_arr, tau_eval)
+    sol, um = solve_batched_probes(problem, tau_eval)
+    NF = problem.config.nfourier
+    modes = torch.arange(NF, dtype=um.dtype, device=um.device)
+    cos = torch.cos(modes[None, :, None] * (sol.phi0[:, None, None] - phi_eval[:, None, :]))   # (B, NF, Nphi)
+    u = torch.einsum("smit,smp->sitp", um, cos)
+    if nt_correct:
+        u = u + nt.nt_correction(sol, tau_eval, phi_eval)
+    return sol.rescale_factor[:, None, None, None] * u
+
+
+def actinic_at(sol, tau):
+    """Diffuse actinic fluxes ``(up, down)``, each (B, Ntau): ``2 pi W @ u0``
+    per hemisphere, the delta-M reclassification of the direct beam added
+    to the downward one (reference ``subroutines.py:258-318``)."""
+    tau = _on(sol, tau)
+    u0v = u0_at(sol, tau)                                     # (B, 2N, Ntau)
+    N = sol.config.n
+    up = 2.0 * math.pi * torch.einsum("si,sit->st", sol.W, u0v[:, :N])
+    dn = 2.0 * math.pi * torch.einsum("si,sit->st", sol.W, u0v[:, N:])
+    return up, dn + ev.act_dscale_reclassification(sol, tau)
+
+
+def solve_actinic(problem: DisortProblem, tau_eval):
+    """Batched solve + diffuse actinic fluxes at ``tau_eval`` (B, Ntau)."""
+    _device(problem.tau_arr.device)
+    return actinic_at(solve_batched(problem), tau_eval)

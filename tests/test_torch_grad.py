@@ -1,12 +1,13 @@
 """First-order reverse-mode gradients of the port held against ``jax.grad``
 (CPU, float64).
 
-Every case of ``tests/test_grad.py`` but the batched NT-corrected
-intensity (its ``parallel.solve_intensity`` is not ported): the same
-numpy inputs go through the JAX package under ``jax.grad`` and through
-the port under ``torch.autograd``, and where the JAX test checks finite
-differences, the port is checked against them too.  Added: the batched
-flux gradient through ``solve_fluxes`` (the cases of
+Every case of ``tests/test_grad.py``: the same numpy inputs go through
+the JAX package under ``jax.grad`` and through the port under
+``torch.autograd``, and where the JAX test checks finite differences, the
+port is checked against them too.  Added: the batched NT-corrected
+intensity gradient on the probe path as well, the gradient with respect
+to an isotropic source, the batched flux gradient through
+``solve_fluxes`` (the cases of
 ``tests/test_batch_solve.py::test_batched_grad_matches_vmapped_grad`` and
 ``tests/test_parallel.py::test_gradients_flow``), NQuad = 48 (the
 fused boundary-value Function at 2N = 48, kernel 7's on the card), ties in the
@@ -434,6 +435,70 @@ def test_batched_grad_wrt_every_leaf():
 
     leaves = [np.asarray(getattr(problem, k)) for k in names]
     for name, g, g_ref in zip(names, port_grad(loss, *leaves), jax_grad(jloss, *leaves)):
+        close(g, g_ref, label=name)
+
+
+@pytest.mark.parametrize("probes_per_layer", [False, True])
+def test_grad_through_batched_nt_corrected_intensity(probes_per_layer):
+    """The case of tests/test_grad.py::test_grad_through_batched_nt_corrected_intensity:
+    d sum(u^2) / d omega through ``solve_intensity`` with the NT correction,
+    the problem built inside the loss; on the general path at the JAX
+    test's probes, and on the probe path at one probe per layer."""
+    B, L, nquad, nleg, nleg_all = 2, 3, 8, 8, 24
+    rng = np.random.default_rng(3)
+    tau = np.cumsum(rng.uniform(0.3, 1.0, (B, L)), axis=1)
+    g = rng.uniform(0.6, 0.75, (B, L))
+    leg = g[..., None] ** np.arange(nleg_all)[None, None, :]
+    f_arr = leg[..., nleg]
+    mu0 = rng.uniform(0.5, 1.0, B)
+    kwargs = dict(nquad=nquad, nleg=nleg, nleg_all=nleg_all, nfourier=nquad, nlayers=L, nscoeffs=0, nbdrf=0,
+                  has_beam=True, only_flux=False, has_deltam=True, nt_correct=True)
+    tau_eval = tau * (1 - 1e-9) if probes_per_layer else tau * 0.7
+    phi_eval = np.broadcast_to(np.array([0.4, 2.2]), (B, 2)).copy()
+    omega0 = rng.uniform(0.6, 0.9, (B, L))
+
+    def jloss(omega):
+        prob = jpar.make_batched_problem(pdt.DisortConfig(**kwargs), tau, omega, leg, mu0, np.full(B, pi),
+                                         f_arr=f_arr, dtype=jnp.float64)
+        u = jpar.solve_intensity(prob, jnp.asarray(tau_eval), jnp.asarray(phi_eval),
+                                 probes_per_layer=probes_per_layer)
+        return jnp.sum(u**2)
+
+    def loss(omega):
+        prob = pt.make_batched_problem(pt.DisortConfig(**kwargs), tau, omega, leg, mu0, np.full(B, pi),
+                                       f_arr=f_arr, dtype=f64, device="cpu")
+        u = pt.solve_intensity(prob, tau_eval, phi_eval, probes_per_layer=probes_per_layer)
+        return (u**2).sum()
+
+    (g,) = port_grad(loss, omega0)
+    (g_ref,) = jax_grad(jloss, omega0)
+    assert np.isfinite(g).all()
+    close(g, g_ref)
+
+
+def test_batched_grad_wrt_iso_source():
+    """An isotropic source with beam, BDRF and delta-M (a row of
+    tests/test_batch_solve.py::CASES): d (sum(fup) + sum(fdn)) with respect
+    to the source polynomials and omega through ``solve_fluxes``."""
+    problem, tau = _problem(4, 1, True, True, True, True, True, S=2, seed=8)
+    names = ("s_poly_coeffs", "omega_arr")
+    tau_eval = tau * 0.6
+    tau_j = jnp.asarray(tau_eval)
+
+    def jloss(*leaves):
+        fup, fdn, _ = jpar.solve_fluxes(dataclasses.replace(problem, **dict(zip(names, leaves))), tau_j)
+        return jnp.sum(fup) + jnp.sum(fdn)
+
+    port = to_port(problem)
+
+    def loss(*leaves):
+        fup, fdn, _ = pt.solve_fluxes(dataclasses.replace(port, **dict(zip(names, leaves))),
+                                      torch.as_tensor(tau_eval))
+        return fup.sum() + fdn.sum()
+
+    leaves = [np.asarray(getattr(problem, k)) for k in names]
+    for name, g, g_ref in zip(names, port_grad(loss, *leaves), jax_grad(jloss, *leaves)):
+        assert np.abs(g).max() > 0, name
         close(g, g_ref, label=name)
 
 

@@ -127,20 +127,6 @@ def test_flux_antiderivative_matches_jax(deltam):
         np.testing.assert_allclose(b.numpy(), a, rtol=1e-9, atol=1e-12 * np.abs(a).max(), err_msg=lbl)
 
 
-@pytest.mark.parametrize("what", ["iso", "intensity", "boundary_probe"])
-def test_unported_options_raise(what):
-    case = {"iso": (4, 1, True, True, False, True, True),
-            "intensity": (4, 1, True, False, False, True, False),
-            "boundary_probe": CASES[0]}[what]
-    problem, tau = _problem(*case)
-    port = to_port(problem)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "boundary_probe":
-            solve_batched(port, boundary_probe_tau=torch.as_tensor(tau))
-        else:
-            pt.solve_fluxes(port, tau)
-
-
 def test_make_batched_problem_matches_jax_field_by_field():
     problem, tau = _problem(*FLUX_CASES[3])
     cfg = dataclasses.asdict(problem.config)
