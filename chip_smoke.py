@@ -10,8 +10,10 @@ solves, and drives both paths of the port:
   bands per column, 8-column chunks, delta-M beam, float32) through
   ``make_batched_problem`` and ``solve_fluxes``, checked against the
   port's float64 CPU result, timed and traced;
-- the single-column ``pydisort`` in float32: the Stamnes goldens of
-  ``tests/data/stamnes`` at the reference thresholds, a 64-layer column at
+- the single-column ``pydisort`` in float32: all 35 Stamnes goldens of
+  ``tests/data/stamnes`` at the reference thresholds (the thermal sources,
+  emissivities and Hapke modes of families 6, 7 and 9c built with the
+  port's ``subroutines``) and the 9corrections check, a 64-layer column at
   NQuad=32 with 32 Fourier modes against the port's float64 CPU result,
   and a batched 8-column NQuad=48 chunk, which takes the fused
   boundary-value kernel of 34 <= 2N <= 64 (kernel 7), checked, timed and
@@ -36,7 +38,16 @@ solves, and drives both paths of the port:
   beam) through ``solve_fluxes`` and ``solve_actinic``, each against the
   port's float64 CPU result on a subset of rows, timed and traced.  Phase
   3 holds kernels 1 and 2 at the intensity chunk's shapes (262 144 eigen
-  lanes, B = 4096 boundary-value lanes).
+  lanes, B = 4096 boundary-value lanes);
+- a longwave sweep from temperature profiles (phase 9): the bench chunk's
+  optical properties, 128 bands over 10-3250 cm^-1 and one 65-level
+  profile a column, through ``ops.planck.s_poly_coeffs_from_temper`` and
+  ``band_integrated_emission`` on the card into ``make_batched_problem``
+  and ``solve_fluxes``, against the float64 host route (scipy) and the
+  port's float64 CPU solve; its gradient with respect to the temperatures
+  (and jointly with omega); 8ARTS_A and 8ARTS_B through ``pydisort`` with
+  the port's ``subroutines`` against their goldens; and one golden's
+  ``interpolate`` and actinic closures in float32 against float64.
 
 Every failed check raises, so the exit code is nonzero.  Its last two
 lines are a JSON line of per-kernel numbers and ``{"ok": true, "device":
@@ -84,6 +95,14 @@ POLE, POLE_CAP = 1e-3, 1e-2
 INT_COLS, INT_NFOURIER, INT_CHUNKS, INT_REF_ROWS = 2, 16, 4, 16
 INT_PHI = (0.0, 1.6, 3.1, 4.7)
 LW_REF_ROWS = REF_COLS * NBANDS
+# phase 9: the longwave chunk from temperature profiles: RRTMG's longwave
+# range, 10-3250 cm^-1, in NBANDS equal bands, and one 65-level profile a
+# column, each from its own seed TEMP_SEED + column; the level emissions of
+# the float32 Planck route within LW_EMISSION_TOL x their row's maximum of
+# the float64 host route (float32's 6e-8 over a 256-node sum)
+LW_RANGE, TEMP_SEED, LW_EMISSION_TOL = (10.0, 3250.0), 100, 2e-5
+# the golden whose float32 closures phase 9 (e) holds against float64
+CLOSURE_GOLDEN = "7c"
 
 def log(*a):
     print(*a, flush=True)
@@ -174,13 +193,23 @@ def column_kwargs(nt_cor=False, nquad=NQUAD, nlayers=NLAYERS, nfourier=None):
 
 
 def golden_cases():
-    """The Stamnes cases whose inputs need numpy and ``tests/data`` alone
-    (families 1-5, 8, 9a, 9b of ``tests/test_stamnes.py``), as
-    ``name -> (pydisort arguments, degrees masked around the beam)``."""
+    """All 35 Stamnes cases of ``tests/test_stamnes.py`` and
+    ``tests/test_stamnes_sources.py``, as ``name -> (pydisort arguments,
+    degrees masked around the beam)``; the thermal sources, emissivities and
+    Hapke modes of families 6, 7 and 9c come from the port's ``subroutines``
+    and ``models.surfaces``, with those tests' arguments."""
+    from pythonic_disort_torch.models.surfaces import hapke_fourier_modes
+    from pythonic_disort_torch.subroutines import (
+        blackbody_contrib_to_BCs as blackbody, generate_emissivity_from_BDRF as emissivity,
+        generate_s_poly_coeffs as s_poly)
+
     def unit(n, second=0.0):
         leg = np.zeros(n)
         leg[0], leg[2] = 1.0, second
         return leg
+
+    def const_bdrf(value):
+        return [lambda mu, neg_mup: np.full((len(mu), len(neg_mup)), value)]
 
     cases = {}
     for name, tau, omega in [("1a", 0.03125, 0.2), ("1b", 0.03125, 1 - 1e-6), ("1c", 0.03125, 0.99),
@@ -202,6 +231,37 @@ def golden_cases():
     for name, omega in [("5a", 1 - 1e-6), ("5b", 0.9)]:
         cases[name] = (dict(tau_arr=64, omega_arr=omega, NQuad=48, Leg_coeffs_all=cloud,
                             mu0=1, I0=pi, phi0=pi, f_arr=cloud[48], NT_cor=True), 10)
+
+    # family 6: no scattering; BDRF, blackbody boundaries, internal emission
+    hapke16 = hapke_fourier_modes(16)
+    base6 = dict(tau_arr=1, omega_arr=0, NQuad=16, Leg_coeffs_all=unit(17), mu0=0.5, I0=200, phi0=0)
+    b_pos6 = emissivity(8, hapke16[0]) * blackbody(300, 0, 50000)
+    b_neg6 = blackbody(250, 0, 50000) + 100 / pi
+    flux6 = dict(base6, BDRF_Fourier_modes=hapke16, only_flux=True)
+    cases["6b"] = (base6, 0)
+    cases["6c"] = (dict(base6, BDRF_Fourier_modes=const_bdrf(0.5)), 0)
+    cases["6d"] = (flux6, 0)
+    cases["6e"] = (dict(flux6, b_pos=b_pos6), 0)
+    cases["6f"] = (dict(flux6, b_pos=b_pos6, b_neg=b_neg6), 0)
+    for name, tau in [("6g", 1), ("6h", 10)]:
+        cases[name] = (dict(flux6, tau_arr=tau, b_pos=b_pos6, b_neg=b_neg6,
+                            s_poly_coeffs=s_poly(tau, np.array([250, 300]), 0, 50000)), 0)
+
+    # family 7: absorption, scattering and every source
+    cases["7a"] = (dict(tau_arr=1, omega_arr=0.1, NQuad=16, Leg_coeffs_all=0.05 ** np.arange(17), mu0=0, I0=0,
+                        phi0=0, s_poly_coeffs=s_poly(1, np.array([200, 300]), 300, 800)), 0)
+    cases["7b"] = (dict(tau_arr=100, omega_arr=0.95, NQuad=16, Leg_coeffs_all=0.75 ** np.arange(17), mu0=0,
+                        I0=0, phi0=0, s_poly_coeffs=s_poly(100, np.array([200, 300]), 2702.99, 2703.01)), 0)
+    leg7 = 0.8 ** np.arange(24)
+    base7 = dict(tau_arr=1, omega_arr=0.5, NQuad=12, Leg_coeffs_all=leg7, mu0=0.5, I0=200, phi0=0,
+                 s_poly_coeffs=s_poly(1, np.array([300, 200]), 0, 80000, epsrel=1e-15),
+                 b_neg=blackbody(100, 0, 80000, epsrel=1e-15) + 100, f_arr=leg7[12])
+    cases["7c"] = (dict(base7, b_pos=blackbody(320, 0, 80000, epsrel=1e-15), NT_cor=True), 0)
+    cases["7d"] = (dict(base7, BDRF_Fourier_modes=const_bdrf(1.0), NT_cor=True), 0)
+    hapke12 = hapke_fourier_modes(12)
+    cases["7e"] = (dict(base7, BDRF_Fourier_modes=hapke12, only_flux=True,
+                        b_pos=emissivity(6, hapke12[0]) * blackbody(320, 0, 80000)), 0)
+
     for name, tau, omega in [("8a", [0.25, 0.5], [0.5, 0.3]), ("8b", [0.25, 0.5], [0.8, 0.95]),
                              ("8c", [1, 3], [0.8, 0.95])]:
         cases[name] = (dict(tau_arr=np.array(tau, np.float64), omega_arr=np.array(omega, np.float64), NQuad=8,
@@ -213,7 +273,103 @@ def golden_cases():
     for name, leg in [("9a", unit(9)), ("9b", leg9b)]:
         cases[name] = (dict(tau_arr=tau9, omega_arr=omega9, NQuad=8, Leg_coeffs_all=np.tile(leg, (6, 1)),
                             mu0=0, I0=0, phi0=0, b_neg=1 / pi), 0)
+    cases["9c"] = (dict(tau_arr=tau9, omega_arr=omega9, NQuad=8,
+                        Leg_coeffs_all=np.vstack([(l / 7) ** np.arange(9) for l in np.arange(1, 7)]),
+                        mu0=0.5, I0=pi, phi0=0, BDRF_Fourier_modes=const_bdrf(0.5),
+                        s_poly_coeffs=s_poly(tau9, 600 + np.arange(7) * 10.0, 999, 1000),
+                        b_pos=blackbody(700, 999, 1000) * (1 - 0.5), b_neg=blackbody(550, 999, 1000) + 1), 0)
     return cases
+
+
+def corrections_case():
+    """``tests/test_stamnes_sources.py::test_9corrections``'s medium (six
+    layers, NQuad = 4, Lambertian BDRF, thermal boundaries and internal
+    sources, a beam), its sources from the port's ``subroutines``: the
+    arguments of the uncorrected run, and the delta-M + NT extras."""
+    from pythonic_disort_torch.subroutines import blackbody_contrib_to_BCs as blackbody, generate_s_poly_coeffs
+
+    tau = np.array([np.sum(np.arange(i + 2)) for i in range(6)], np.float64)
+    leg = np.vstack([((l / 3 + 4) / 7) ** np.arange(4 * 5) for l in np.arange(1, 7)])
+    common = dict(tau_arr=tau, omega_arr=0.9 + np.arange(1, 7) * 0.01, NQuad=4, Leg_coeffs_all=leg, mu0=0.5, I0=pi,
+                  phi0=0.0, b_pos=blackbody(700, 999, 1000) * (1 - 0.5), b_neg=blackbody(550, 999, 1000) + 1,
+                  s_poly_coeffs=generate_s_poly_coeffs(tau, 600 + np.arange(7) * 10.0, 999, 1000),
+                  BDRF_Fourier_modes=[lambda mu, neg_mup: np.full((len(mu), len(neg_mup)), 0.5)])
+    return common, dict(f_arr=leg[:, 4], NT_cor=True)
+
+
+def corrections_readings(dtype, device):
+    """``tests/test_stamnes_sources.py::test_9corrections``'s readings
+    against ``9corrections_test.npz``: max |diff| of flux_up, the diffuse
+    flux_down and u, without and with delta-M + NT (the latter 9c)."""
+    from pythonic_disort_torch import pydisort
+    from pythonic_disort_torch.utils.compare import compare
+
+    common, extras = corrections_case()
+    results = np.load(DATA / "stamnes" / "9corrections_test.npz")
+    readings = []
+    for kw in (common, dict(common, **extras)):
+        mu_arr, flux_up, flux_down, _, u = pydisort(**kw, dtype=dtype, device=device)
+        out = compare(results, np.full(len(mu_arr), True), np.argsort(mu_arr), flux_up, flux_down, u,
+                      verbose=False)
+        readings.append((out[0], out[2], out[6]))
+    return readings
+
+
+def arts_a_surface(dtype, device):
+    """``tests/test_arts.py::test_8ARTS_A``: the surface intensity of 101
+    pure-absorption atmospheres (20 layers, NQuad = 8, linear sources)
+    through ``pydisort``, and the golden ``8ARTS_A_test.npy``."""
+    from pythonic_disort_torch import pydisort
+
+    data = np.load(DATA / "arts_A.npz")
+    src, tau = data["src"], data["tau"]
+    out = np.empty(src.shape[0])
+    for i in range(src.shape[0]):
+        u = pydisort(tau_arr=tau[i], omega_arr=tau[i] * 0, NQuad=8, Leg_coeffs_all=np.ones((len(tau[i]), 1)),
+                     I0=0.0, mu0=0.0, phi0=0.0, NLeg=1, NFourier=1, s_poly_coeffs=src[i] * 1e15,
+                     dtype=dtype, device=device)[4]
+        out[i] = u(tau[i], 0.0).T[-1, -1]
+    return out, np.load(DATA / "stamnes" / "8ARTS_A_test.npy")
+
+
+def arts_b_inputs(ifreq):
+    """``tests/test_arts.py::test_8ARTS_B``'s arguments at frequency
+    ``ifreq`` (48 layers, NQuad = 40, microwave), the thermal source and
+    boundaries from the port's ``subroutines``."""
+    from pythonic_disort_torch.subroutines import blackbody_contrib_to_BCs, generate_s_poly_coeffs
+
+    data = np.load(DATA / "arts_B.npz")
+    tau = data["optical_thicknesses"][ifreq]
+    temper = data["TEMPER"]
+    return dict(tau_arr=tau, omega_arr=data["single_scattering_albedo"][ifreq],
+                NQuad=int(data["quadrature_dimension"]),
+                Leg_coeffs_all=np.hstack([data["legendre_coefficients"][ifreq], np.zeros((len(tau), 1))]),
+                mu0=0, I0=0, phi0=0, s_poly_coeffs=generate_s_poly_coeffs(tau, temper, 0.0, 50000.0),
+                b_pos=blackbody_contrib_to_BCs(np.mean(temper), 0.0, 50000.0),
+                b_neg=blackbody_contrib_to_BCs(np.median(temper), 0.0, 50000.0))
+
+
+def arts_b_readings(kwargs, ifreq, dtype, device):
+    """``tests/test_arts.py::test_8ARTS_B``'s four readings against
+    ``8ARTS_B<ifreq>_test.npz``: the largest relative error of u, flux_up,
+    the diffuse and the direct flux_down where |diff| > 1e-3."""
+    from pythonic_disort_torch import pydisort
+
+    mu_arr, flux_up, flux_down, _, u = pydisort(**kwargs, dtype=dtype, device=device)
+    g = np.load(DATA / "stamnes" / f"8ARTS_B{ifreq}_test.npz")
+    tau = g["tau_test_arr"]
+
+    def worst(ref, ours):
+        d = np.abs(ref - ours)
+        return float(np.max(np.divide(d, np.abs(ref), out=np.zeros_like(d), where=ref != 0)[d > 1e-3], initial=0))
+
+    fd, fdir = flux_down(tau)
+    return dict(u=worst(g["uu"], u(tau, g["phi_arr"])[np.argsort(mu_arr)].reshape(g["uu"].shape)),
+                flux_up=worst(g["flup"], flux_up(tau)), flux_down_diffuse=worst(g["rfldn"], fd),
+                flux_down_direct=worst(g["rfldir"], fdir))
+
+
+ARTS_B_LIMITS = dict(u=1e-2, flux_up=1e-3, flux_down_diffuse=1e-3, flux_down_direct=1e-3)
 
 
 class Recorder:
@@ -1214,19 +1370,25 @@ def within(a, b, label, bound=1e-3, what="float64"):
 
 
 def run_golden(name, kwargs, deg_around_beam, dtype, device):
-    """One Stamnes case through ``pydisort``; the four readings the reference
-    thresholds apply to (largest relative error where |diff| > 1e-3)."""
+    """One Stamnes case through ``pydisort``; the readings the reference
+    thresholds apply to (largest relative error where |diff| > 1e-3), the
+    intensity's where the case returns one (``only_flux=False``)."""
     from pythonic_disort_torch import pydisort
     from pythonic_disort_torch.utils.compare import compare
 
-    mu_arr, flux_up, flux_down, _, u = pydisort(**kwargs, dtype=dtype, device=device)
+    outputs = pydisort(**kwargs, dtype=dtype, device=device)
+    mu_arr, flux_up, flux_down = outputs[:3]
+    u = outputs[4] if len(outputs) > 4 else None
     reorder = np.argsort(mu_arr)
     away = np.abs(np.arccos(np.abs(mu_arr[reorder])) - np.arccos(kwargs["mu0"])) * 180 / pi
     out = compare(np.load(DATA / "stamnes" / f"{name}_test.npz"), away > deg_around_beam, reorder,
                   flux_up, flux_down, u, verbose=False)
     worst = lambda diff, ratio: float(np.max(ratio[diff > 1e-3], initial=0))
-    return dict(flux_up=worst(out[0], out[1]), flux_down_diffuse=worst(out[2], out[3]),
-                flux_down_direct=worst(out[4], out[5]), intensity=worst(out[6], out[7]))
+    got = dict(flux_up=worst(out[0], out[1]), flux_down_diffuse=worst(out[2], out[3]),
+               flux_down_direct=worst(out[4], out[5]))
+    if u is not None:
+        got["intensity"] = worst(out[6], out[7])
+    return got
 
 
 GOLDEN_LIMITS = dict(flux_up=1e-3, flux_down_diffuse=1e-3, flux_down_direct=1e-3, intensity=1e-2)
@@ -1252,6 +1414,14 @@ def phase_single_column(kernels):
                   f"golden {name}: relative errors where |diff| > 1e-3 below 1e-3 (fluxes) and 1e-2 (intensity)")
     tight = max(margins, key=margins.get)
     log(f"  {len(cases)} goldens pass in float32; the tightest is {tight} at {margins[tight]:.3f} of its limit")
+    (dfu, dfdd, diff), (dfu_dM, dfdd_dM, diff_NT) = corrections_readings(**f32)
+    log(f"  9corrections: mean improvement of flux_up {np.mean(dfu - dfu_dM):.3e}, diffuse flux_down "
+        f"{np.mean(dfdd - dfdd_dM):.3e}, u {np.mean(diff - diff_NT):.3e}; corrected run max |diff| flux_up "
+        f"{np.max(dfu_dM):.3e}, flux_down {np.max(dfdd_dM):.3e}, u {np.max(diff_NT):.3e}")
+    check(np.mean(dfu - dfu_dM) > 0 and np.mean(dfdd - dfdd_dM) > 0 and np.mean(diff - diff_NT) > 0,
+          "9corrections: delta-M + NT beat the uncorrected run in mean on flux_up, diffuse flux_down and u")
+    check(np.max(dfu_dM) < 0.05 and np.max(dfdd_dM) < 0.05 and np.max(diff_NT) < 0.6,
+          "9corrections: the corrected run within 0.05, 0.05 and 0.6 of the golden")
 
     log(f"  one column, L={NLAYERS}, NQuad={NQUAD}, NFourier={NQUAD}, intensity")
     kwargs = column_kwargs()
@@ -1842,6 +2012,234 @@ def phase_intensity(kernels, card):
     log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+def temperature_profiles(ncols):
+    """One 65-level profile a column, top to bottom, each from its own seed
+    ``TEMP_SEED + column``: 280-310 K at the surface, falling linearly to
+    200-230 K at the top, with +-2 K of uniform noise at every level."""
+    out = np.empty((ncols, NLAYERS + 1))
+    frac = np.linspace(0.0, 1.0, NLAYERS + 1)
+    for c in range(ncols):
+        rng = np.random.default_rng(TEMP_SEED + c)
+        top, surface = rng.uniform(200.0, 230.0), rng.uniform(280.0, 310.0)
+        out[c] = top + (surface - top) * frac + rng.uniform(-2.0, 2.0, NLAYERS + 1)
+    return out
+
+
+def band_edges():
+    return np.linspace(*LW_RANGE, NBANDS + 1)
+
+
+def planck_stage(tau, temper):
+    """The device Planck route of a chunk: per band one call of
+    ``s_poly_coeffs_from_temper`` and one of ``band_integrated_emission``
+    (the surface) over the columns.  ``tau`` (C x NBANDS, L) with row
+    c x NBANDS + k column c's band k, ``temper`` (C, L + 1); returns
+    ``s_poly`` (C x NBANDS, L, 2) and ``b_pos`` (C x NBANDS, N, 1)."""
+    import torch
+    from pythonic_disort_torch.ops.planck import band_integrated_emission, s_poly_coeffs_from_temper
+
+    C = temper.shape[0]
+    tau_cb = tau.view(C, NBANDS, -1)
+    edges = band_edges()
+    s_poly, surface = [], []
+    for k in range(NBANDS):
+        lo, hi = float(edges[k]), float(edges[k + 1])
+        s_poly.append(s_poly_coeffs_from_temper(tau_cb[:, k], temper, lo, hi))
+        surface.append(band_integrated_emission(temper[:, -1], lo, hi))
+    b_pos = torch.stack(surface, dim=1).reshape(-1, 1, 1).expand(-1, NQUAD // 2, 1)
+    return torch.stack(s_poly, dim=1).reshape(C * NBANDS, -1, 2), b_pos
+
+
+def temperature_chunk(a, temper, tau_eval=None):
+    """Temperatures -> fluxes: ``planck_stage``, ``make_batched_problem`` and
+    ``solve_fluxes`` of the longwave configuration (`longwave_problem`) on
+    the device of ``a["tau"]`` (tensors of the chunk's arrays), at the layer
+    bottoms unless ``tau_eval`` (B, Ntau) is given."""
+    from pythonic_disort_torch import solve_fluxes
+
+    s_poly, b_pos = planck_stage(a["tau"], temper)
+    prob, tau = longwave_problem(dict(a, s_poly=s_poly, b_pos=b_pos), a["tau"].dtype, a["tau"].device,
+                                 only_flux=True)
+    return solve_fluxes(prob, tau if tau_eval is None else tau_eval)
+
+
+def host_route(a, temper, nrows):
+    """The float64 host route (scipy's adaptive quadrature) for the first
+    ``nrows`` rows: level emissions (nrows, L + 1), ``s_poly`` and ``b_pos``."""
+    from pythonic_disort_torch.utils.thermal import blackbody_contrib_to_BCs, generate_s_poly_coeffs
+
+    edges = band_edges()
+    emission = np.empty((nrows, NLAYERS + 1))
+    s_poly = np.empty((nrows, NLAYERS, 2))
+    for r in range(nrows):
+        c, k = divmod(r, NBANDS)
+        emission[r] = blackbody_contrib_to_BCs(temper[c], edges[k], edges[k + 1])
+        s_poly[r] = generate_s_poly_coeffs(a["tau"][r], temper[c], edges[k], edges[k + 1])
+    b_pos = np.broadcast_to(emission[:, -1, None, None], (nrows, NQUAD // 2, 1)).copy()
+    return emission, s_poly, b_pos
+
+
+def on_device(a, dtype, device, grad=()):
+    """The chunk's arrays as tensors (``grad``: the keys that require one)."""
+    import torch
+
+    return {k: torch.tensor(v, dtype=dtype, device=device, requires_grad=k in grad) for k, v in a.items()
+            if k in ("tau", "omega", "leg", "f_arr")}
+
+
+def temperature_gradient(a, temper, dtype, device, wrt):
+    """d sum(flux_up at the top) / d (``wrt``: "temper", and "omega" if
+    asked) of the temperature chunk; returns a step function that gives the
+    gradients (tensors in the order of ``wrt``)."""
+    import torch
+
+    arrs = on_device(a, dtype, device, grad=wrt)
+    T = torch.tensor(temper, dtype=dtype, device=device, requires_grad=True)
+    top = torch.zeros((a["tau"].shape[0], 1), dtype=dtype, device=device)
+    leaves = [T if k == "temper" else arrs[k] for k in wrt]
+
+    def step():
+        return torch.autograd.grad(temperature_chunk(arrs, T, top)[0].sum(), leaves)
+
+    return step
+
+
+def phase_longwave(kernels, card):
+    """Phase 9: a longwave sweep from temperature profiles to fluxes (the
+    Planck route on the card), its gradient with respect to the
+    temperatures, ARTS through the port's ``subroutines``, and the mu
+    interpolation and actinic closures of a golden, in float32 on the card."""
+    import torch
+    from pythonic_disort_torch import pydisort, solve_fluxes
+    from pythonic_disort_torch.ops.planck import band_integrated_emission
+    from pythonic_disort_torch.subroutines import generate_diff_act_flux_funcs, interpolate
+
+    t_phase = time.perf_counter()
+    by_name = {k["name"]: k for k in kernels}
+    others = [k for k in wrappers() if k not in ("eig_stage", "bvp_fused")]
+    S, nref = CHUNK_COLS * NBANDS, REF_COLS * NBANDS
+    log(f"phase 9: longwave chunk from temperatures, {CHUNK_COLS} columns x {NBANDS} bands "
+        f"({LW_RANGE[0]:g}-{LW_RANGE[1]:g} cm^-1), L={NLAYERS}, NQuad={NQUAD}, NFourier=1, delta-M, no beam, "
+        f"f32, cuda ({card})")
+    a = bench_arrays(CHUNK_COLS)
+    temper = temperature_profiles(CHUNK_COLS)
+    arrs = on_device(a, torch.float32, "cuda")
+    T = torch.tensor(temper, dtype=torch.float32, device="cuda")
+
+    # (a) temperatures -> sources -> fluxes
+    chunk = lambda: temperature_chunk(arrs, T)
+    out, launches = launched(chunk, "(a) one longwave chunk from temperatures", ("eig_stage", "bvp_fused"), others)
+    for k in ("eig_stage", "bvp_fused"):
+        by_name[k]["launches_temperature_chunk"] = launches[k]
+    check(all(x.shape == (S, NLAYERS) and torch.isfinite(x).all().item() for x in out),
+          f"(a) fluxes finite with shape ({S}, {NLAYERS})")
+    t0 = time.perf_counter()
+    emission, s_host, b_host = host_route(a, temper, nref)
+    log(f"  float64 host route ({nref} rows, scipy quad_vec) in {time.perf_counter() - t0:.1f} s")
+    edges = band_edges()
+    e_card = torch.stack([band_integrated_emission(T[:REF_COLS], float(edges[k]), float(edges[k + 1]))
+                          for k in range(NBANDS)], dim=1).reshape(nref, -1).double().cpu().numpy()
+    rel = (np.abs(e_card - emission).max(axis=1) / np.abs(emission).max(axis=1)).max()
+    log(f"  level emissions ({nref} rows x {NLAYERS + 1} levels, {emission.min():.3e} to {emission.max():.3e}): "
+        f"max |f32 - host f64| / row max = {rel:.3e} (bound {LW_EMISSION_TOL:g})")
+    check(np.isfinite(e_card).all() and rel < LW_EMISSION_TOL,
+          f"(a) level emissions within {LW_EMISSION_TOL:g} x their row's maximum of the float64 host route")
+    t0 = time.perf_counter()
+    ref = solve_fluxes(*longwave_problem(dict(rows(a, nref), s_poly=s_host, b_pos=b_host), torch.float64, "cpu",
+                                         only_flux=True))
+    log(f"  float64 CPU reference on the host route's sources ({nref} solves) in {time.perf_counter() - t0:.1f} s")
+    check(ref[2].abs().max().item() == 0 and ref[0].abs().min().item() > 0,
+          "(a) no direct beam, upward flux everywhere")
+    for lbl, r, o in zip(("fup", "fdn", "fdir"), ref, out):
+        within(r.numpy(), o[:nref].double().cpu().numpy(), f"(a) {lbl} ({nref} rows)")
+    s_poly, b_pos = planck_stage(arrs["tau"], T)
+    prob, tau = longwave_problem(dict(arrs, s_poly=s_poly, b_pos=b_pos), torch.float32, "cuda", only_flux=True)
+    # the three timed in turns: the host-bound stages vary with what ran before
+    runs = {"Planck stage": lambda: planck_stage(arrs["tau"], T), "solve": lambda: solve_fluxes(prob, tau),
+            "whole chunk": chunk}
+    times = {k: [] for k in runs}
+    for _ in range(REPS):
+        for k, run in runs.items():
+            times[k].append(best_ms(run, 1, reps=1))
+    planck_ms, solve_ms, chunk_ms = (min(t) for t in times.values())
+    log("  (a) host clock, in turns: " + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)} ms"
+                                                   for k, v in times.items()))
+    log(f"  (a) best of {REPS}: Planck stage {planck_ms:.3f} ms per chunk ({2 * NBANDS} calls), solve "
+        f"{solve_ms:.3f} ms, the whole chunk from temperatures to fluxes {chunk_ms:.3f} ms "
+        f"({CHUNK_COLS / chunk_ms * 1e3:.3f} columns/s)")
+    phase_trace(chunk, "phase 9 (a), one longwave chunk from temperatures to fluxes", chunk_ms)
+
+    # (b) d sum(flux_up at the top) / d temper, and jointly with omega
+    t0 = time.perf_counter()
+    g_ref = temperature_gradient(rows(a, nref), temper[:REF_COLS], torch.float64, "cpu", ("temper", "omega"))()
+    log(f"  float64 CPU gradient, d / d (temper, omega) ({nref} solves) in {time.perf_counter() - t0:.1f} s")
+    for wrt, on, off in ((("temper",), ("eig_stage", "bvp_fused", "blocktri"), ("jacobi_eigh",)),
+                         (("temper", "omega"), ("jacobi_eigh", "bvp_fused", "blocktri"), ("eig_stage",))):
+        label = "d / d " + " and ".join(wrt)
+        step = temperature_gradient(a, temper, torch.float32, "cuda", wrt)
+        g, launches = launched(step, f"(b) one gradient step, {label}", on,
+                               off + ("jacobi_eigh_wide", "blocktri_wide", "bvp_fused_wide"))
+        for k in on:
+            by_name[k][f"launches_temperature_gradient_{'_'.join(wrt)}"] = launches[k]
+        within_grad(g[0][:REF_COLS], g_ref[0], 2e-3, f"(b) {label}: d sum(flux_up(top)) / d temper, columns 0-1")
+        if len(wrt) > 1:
+            within_grad(g[1][:nref], g_ref[1], 2e-3, f"(b) {label}: d sum(flux_up(top)) / d omega, {nref} rows")
+        step_ms = best_ms(step, 1)
+        log(f"  (b) {label}: forward + backward {step_ms:.3f} ms per chunk (best of {REPS}); "
+            f"the forward chunk {chunk_ms:.3f} ms")
+        phase_trace(step, f"phase 9 (b), one gradient step, {label}", step_ms)
+
+    # (c) ARTS through the port's subroutines
+    log("  (c) 8ARTS_A: 101 pure-absorption atmospheres, 20 layers, NQuad=8, one pydisort call each")
+    for dtype in (torch.float32, torch.float64):
+        reset_launches()
+        t0 = time.perf_counter()
+        surf, ref = arts_a_surface(dtype, "cuda")
+        ms = 1e3 * (time.perf_counter() - t0) / len(ref)
+        launches = read_launches()
+        err = np.max(np.abs(surf - ref) / ref)
+        log(f"    {dtype}: max relative error of the surface intensity {err:.3e}; {ms:.3f} ms per call "
+            f"(pydisort and one u evaluation); launches {launches}")
+        check(launches["eig_stage"] == launches["blocktri"] == len(ref)
+              and sum(launches.values()) == 2 * len(ref), f"8ARTS_A {dtype}: kernels 1 and 3 once a call")
+        if dtype == torch.float64:
+            check(err < 1e-2, "8ARTS_A in float64 on the card: surface intensity within 1e-2 of the golden")
+        else:
+            check(np.isfinite(surf).all(), "8ARTS_A in float32: finite (the 1e-2 bound needs float64: the deep "
+                  "layers' source intercepts cancel, ROADMAP section 3)")
+            by_name["eig_stage"]["launches_arts_a"] = launches["eig_stage"]
+            by_name["blocktri"]["launches_arts_a"] = launches["blocktri"]
+    log("  (c) 8ARTS_B0-2: 48 layers, NQuad=40, microwave, float32")
+    for ifreq in range(3):
+        kw = arts_b_inputs(ifreq)
+        reset_launches()
+        got = arts_b_readings(kw, ifreq, torch.float32, "cuda")
+        launches = read_launches()
+        ms = best_ms(lambda: pydisort(**kw, dtype=torch.float32, device="cuda")[1](kw["tau_arr"][-1]), 1)
+        log(f"    8ARTS_B{ifreq}: " + ", ".join(f"{k} {v:.3e}" for k, v in got.items())
+            + f"; {ms:.3f} ms per call (solve and one flux_up, best of {REPS}); launches {launches}")
+        check(launches["eig_stage"] == 1 and launches["blocktri"] == 1 and sum(launches.values()) == 2,
+              f"8ARTS_B{ifreq}: kernels 1 and 3 once")
+        check(all(v < ARTS_B_LIMITS[k] for k, v in got.items()),
+              f"8ARTS_B{ifreq}: u within 1e-2 and fluxes within 1e-3 (relative, where |diff| > 1e-3)")
+
+    # (e) the mu interpolation and actinic closures of one golden
+    kw = golden_cases()[CLOSURE_GOLDEN][0]
+    log(f"  (e) golden {CLOSURE_GOLDEN}'s closures: interpolate(u), interpolate(u0), the actinic fluxes")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mu, _, _, u0, u = pydisort(**kw, dtype=torch.float32, device="cuda")
+        _, _, _, u0_64, u_64 = pydisort(**kw, dtype=torch.float64, device="cpu")
+    taus = np.linspace(0.0, np.atleast_1d(kw["tau_arr"])[-1], 5)
+    phis = np.array([0.0, 1.5, 3.0])
+    mus = np.concatenate([mu, [0.3, -0.45, 1.0]])
+    within(interpolate(u_64)(mus, taus, phis), interpolate(u)(mus, taus, phis), "(e) interpolate(u)")
+    within(interpolate(u0_64)(mus, taus), interpolate(u0)(mus, taus), "(e) interpolate(u0)")
+    for lbl, f, f64 in zip(("up", "down"), generate_diff_act_flux_funcs(u0), generate_diff_act_flux_funcs(u0_64)):
+        within(f64(taus), f(taus), f"(e) diffuse actinic flux {lbl}")
+    log(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main():
     import torch
 
@@ -1866,6 +2264,7 @@ def main():
     phase_gradient(arrs, kernels, chunk_ms)
     phase_widths(kernels)
     phase_intensity(kernels, card)
+    phase_longwave(kernels, card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

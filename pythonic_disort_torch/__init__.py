@@ -11,7 +11,10 @@ boundary-value solve (batched path, NQuad <= 32), the generic
 block-Thomas solve (single-column path; batched path for NQuad 48, 64;
 the transposed solve of every gradient) and the batched two-sided Jacobi
 eigendecomposition (the eigen stage of every gradient).  Both paths take
-first-order reverse-mode gradients through ``torch.autograd``.
+first-order reverse-mode gradients through ``torch.autograd``.  The
+reference-compatible ``subroutines`` namespace holds the host utilities
+(Planck and source polynomials, BDRF helpers, mu interpolation, actinic
+fluxes); ``ops.planck`` integrates Planck bands on the device.
 """
 
 import torch
@@ -37,6 +40,7 @@ from .parallel.batch import (  # noqa: E402
     actinic_at, fluxes_at, make_batched_problem, solve_actinic, solve_fluxes, solve_intensity, u0_at, u_at,
     u_corrected_at,
 )
+from . import subroutines  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -45,5 +49,5 @@ __all__ = [
     "make_batched_problem", "solve_batched", "solve_batched_probes", "fluxes_at", "solve_fluxes",
     "u0_at", "u_at", "u_corrected_at", "solve_intensity", "actinic_at", "solve_actinic",
     "build_problem", "pydisort", "solve", "solve_block_tridiag", "disort_eigh", "jacobi_eigh",
-    "problem_from_arrays", "solution_to_arrays",
+    "problem_from_arrays", "solution_to_arrays", "subroutines",
 ]
