@@ -47,7 +47,15 @@ solves, and drives both paths of the port:
   port's float64 CPU solve; its gradient with respect to the temperatures
   (and jointly with omega); 8ARTS_A and 8ARTS_B through ``pydisort`` with
   the port's ``subroutines`` against their goldens; and one golden's
-  ``interpolate`` and actinic closures in float32 against float64.
+  ``interpolate`` and actinic closures in float32 against float64;
+- in phase 6 besides: d loss / d mu0 of the bench chunk (m), whose beam
+  table at -mu0 is then built on the card, and forward mode (f):
+  ``jacobi_eigh`` and ``disort_eigh_lanes`` under ``forward_ad`` against
+  float64, the eigen kernel's entry refusing dual operands and the whole
+  solve raising under forward mode;
+- the resumable sweep driver (phase 10): ``parallel.SweepDriver`` over 16
+  bench chunks and a ragged one, with and without overlap, its files
+  against ``solve_fluxes`` bit for bit, a resume, its syncs and a trace.
 
 Every failed check raises, so the exit code is nonzero.  Its last two
 lines are a JSON line of per-kernel numbers and ``{"ok": true, "device":
@@ -1622,6 +1630,8 @@ def phase_gradient(arrs, kernels, chunk_ms):
         f"{', '.join(f'{t:.3f}' for t in times)}), {step_ms / CHUNK_COLS:.3f} ms per column; "
         f"the forward-only chunk {chunk_ms:.3f} ms, ratio {step_ms / chunk_ms:.2f}")
     phase_trace(step, "phase 6, one gradient step of the main-path chunk", step_ms)
+    gradient_mu0(arrs, by_name, step, dist)
+    forward_mode(by_name)
     gradient_step_nquad48(by_name)
 
     log(f"  single column, L={NLAYERS}, NQuad={NQUAD}, NFourier={NQUAD}: d sum(flux_up) / d omega")
@@ -1644,6 +1654,198 @@ def phase_gradient(arrs, kernels, chunk_ms):
         col_times.append(1e3 * (time.perf_counter() - t0))
     log(f"  then {', '.join(f'{t:.3f}' for t in col_times)} ms")
     within_grad(gc, column_gradient(torch.float64, "cpu"), 2e-3, "float32 column gradient")
+
+def gradient_mu0(arrs, by_name, omega_step, dist):
+    """Phase 6 (m): d loss / d mu0 of the bench chunk in float32, mu0 the
+    leaf (its Legendre table at -mu0 then built on the card), against the
+    port's float64 CPU gradient on the rows of ``dist`` (their distances to
+    the beam pole) under phase 6's pole bound; timed in turns with the
+    omega step ``omega_step``, and traced."""
+    import torch
+    from pythonic_disort_torch.tools.check_jacobi import gradient_step
+
+    log(f"  (m) d loss / d mu0 of the same chunk, mu0 the leaf, f32, cuda")
+    step = gradient_step(arrs, torch.float32, "cuda", wrt="mu0")
+    g, launches = launched(step, "(m) one d loss / d mu0 step", ("eig_stage", "bvp_fused", "blocktri"),
+                           ("jacobi_eigh", "jacobi_eigh_wide", "blocktri_wide", "bvp_fused_wide"))
+    check(launches["eig_stage"] == 1 and launches["bvp_fused"] == 1,
+          "(m) the eigen kernel and the fused BVP kernel once each: the eigen operands take no gradient")
+    for name in ("eig_stage", "bvp_fused", "blocktri"):
+        by_name[name]["launches_mu0_gradient_step"] = launches[name]
+    check(g.shape == (CHUNK_COLS * NBANDS,), f"(m) d loss / d mu0 has shape ({CHUNK_COLS * NBANDS},)")
+    nref = len(dist)
+    t0 = time.perf_counter()
+    g_ref = gradient_step(rows(arrs, nref), torch.float64, "cpu", wrt="mu0")()
+    log(f"  (m) float64 CPU gradient ({nref} solves) in {time.perf_counter() - t0:.1f} s")
+    scale = g_ref.abs().max().item()
+    bound = torch.clamp(2e-3 * scale * (POLE / dist) ** 2, min=2e-3 * scale, max=POLE_CAP * scale)
+    err = (g[:nref].double().cpu() - g_ref).abs()
+    j = int((err / bound).argmax())
+    log(f"  (m) float32 against float64 on {nref} rows: largest error {err.max().item() / scale:.3e} of "
+        f"max|g_ref| = {scale:.3e}; error / bound at most {(err / bound).max().item():.3f} (row {j}: d = "
+        f"{dist[j].item():.3e}, error {err[j].item() / scale:.3e}, bound {bound[j].item() / scale:.3e}); "
+        f"the row nearest the pole: d = {dist.min().item():.3e}")
+    check(bool(torch.isfinite(g).all()) and bool((err < bound).all()),
+          f"(m) float32 card d loss / d mu0 within 2e-3 x max|g_ref| x max(1, ({POLE:g} / |K mu0 - 1|)^2), "
+          f"at most {POLE_CAP:g} x max|g_ref|, on every row")
+    times = {"d / d omega": [], "d / d mu0": []}
+    for _ in range(REPS):
+        for label, run in zip(times, (omega_step, step)):
+            times[label].append(best_ms(run, 1, reps=1))
+    omega_ms, mu0_ms = (min(t) for t in times.values())
+    log("  (m) forward + backward, host clock, in turns: "
+        + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)} ms" for k, v in times.items()))
+    log(f"  (m) best of {REPS}: d / d mu0 {mu0_ms:.3f} ms per chunk, d / d omega {omega_ms:.3f} ms")
+    by_name["bvp_fused"]["mu0_gradient_step_ms"] = mu0_ms
+    phase_trace(step, "phase 6 (m), one d loss / d mu0 step of the main-path chunk", mu0_ms)
+
+
+FWD_LANES = 2048        # lanes of a forward-mode tangent held against float64 on the CPU
+# phase 6 (f): a float32 tangent per lane within this x its lane's largest
+# float64 entry (the plain versions in float32 on the CPU read at most
+# 6.4e-5 for dw and 1.2e-4 for the projectors' tangents at n = 24)
+FWD_TOL = {"eigenvalues": 1e-3, "projectors": 3e-3}
+
+
+def symmetric_tangent(x, seed, rel=1e-2):
+    """A random symmetric tangent of the batch of matrices ``x`` (..., n, n),
+    ``rel`` x each matrix's largest entry."""
+    import torch
+
+    r = torch.randn(x.shape, generator=torch.Generator(device=x.device).manual_seed(seed), dtype=x.dtype,
+                    device=x.device)
+    return 0.5 * (r + r.mT) * rel * x.abs().amax(dim=(-2, -1), keepdim=True)
+
+
+def lane_errors(label, got, ref, tol):
+    """Per lane (the leading axis), max |got - ref| / max |ref|, with ``ref``
+    in float64 on the CPU; checked below ``tol``."""
+    import torch
+
+    dims = tuple(range(1, ref.dim()))
+    e = (got.double().cpu() - ref).abs().amax(dim=dims) / ref.abs().amax(dim=dims)
+    log(f"  (f) {label}: per-lane max |f32 - f64| / lane max: largest {e.max().item():.3e}, "
+        f"median {e.median().item():.3e} over {len(e)} lanes (bound {tol:g})")
+    check(bool(torch.isfinite(got).all()) and e.max().item() < tol,
+          f"(f) {label} within {tol:g} of float64 on every lane")
+
+
+def dual(fn, primals, tangents):
+    """``fn`` under ``torch.autograd.forward_ad``: (primal, tangent) of each output."""
+    import torch.autograd.forward_ad as fwAD
+
+    with fwAD.dual_level():
+        outs = fn(*(fwAD.make_dual(p, t) for p, t in zip(primals, tangents)))
+        return [tuple(fwAD.unpack_dual(o)) for o in outs]
+
+
+def projector_tangents(V, dV):
+    """Tangents of the projectors V[:, i] V[:, i]^T of (B, n, n) V: (B, n, n, n),
+    free of the eigenvectors' signs."""
+    import torch
+
+    t = torch.einsum("bri,bci->birc", dV, V)
+    return t + t.transpose(-1, -2)
+
+
+def spectral_by_k(K, X, P, dK, dX, dP):
+    """Lanes outputs of `disort_eigh_lanes` under a tangent -> per lane, in
+    ascending K: K, dK and the tangents of the spectral projectors
+    X[:, i] P[i, :], (B, N), (B, N), (B, N, N, N)."""
+    import torch
+
+    order = torch.argsort(K, dim=0)
+    dproj = torch.einsum("ikb,kjb->bkij", dX, P) + torch.einsum("ikb,kjb->bkij", X, dP)
+    pick = order.T[:, :, None, None].expand(dproj.shape)
+    return (torch.take_along_dim(K, order, 0).T, torch.take_along_dim(dK, order, 0).T,
+            torch.take_along_dim(dproj, pick, 1))
+
+
+def raises(run, exc, label):
+    """Check that ``run()`` raises ``exc``."""
+    try:
+        run()
+    except exc as e:
+        check(True, f"{label} raises {exc.__name__}: {str(e)[:120]}")
+        return
+    check(False, f"{label} raises {exc.__name__}")
+
+
+def forward_mode(by_name):
+    """Phase 6 (f): forward mode on the card.  `jacobi_eigh` under
+    ``forward_ad`` on the bench chunk's and the NQuad=48 chunk's congruence
+    M (kernel 4 once a call), `disort_eigh_lanes` with dual operands at the
+    bench shape (the Jacobi route, not kernel 1), each tangent on FWD_LANES
+    lanes against float64 on the CPU; the eigen kernel's entry refusing dual
+    operands, and `solve_fluxes` on a dual omega raising."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+    from pythonic_disort_torch import solve_fluxes
+    from pythonic_disort_torch.models.disort import batch_solve as bs_mod
+    from pythonic_disort_torch.ops import cuda_eig
+    from pythonic_disort_torch.ops import eig as eig_mod
+    from pythonic_disort_torch.ops.eig import disort_eigh_lanes
+    from pythonic_disort_torch.ops.jacobi import jacobi_eigh
+    from pythonic_disort_torch.tools.check_bvp import batched_problem
+
+    log(f"  (f) forward mode (torch.autograd.forward_ad), f32, cuda; tangents on {FWD_LANES} lanes against "
+        f"float64 on the CPU")
+    others = ("eig_stage", "jacobi_eigh_wide", "blocktri", "blocktri_wide", "bvp_fused", "bvp_fused_wide")
+    for nquad, seed in ((NQUAD, 42), (48, 13)):
+        arrs = bench_arrays(CHUNK_COLS, seed=seed, nquad=nquad)
+        problem, tau = make_problem(arrs, torch.float32, "cuda", nquad=nquad)
+        with recording(eig_mod, "eig_stage_lanes") as eig_rec, recording(bs_mod, "disort_eigh_lanes") as d_rec:
+            solve_fluxes(problem, tau)
+        At, Bt = eig_rec.operands
+        A = congruence(At, Bt).permute(2, 0, 1).contiguous()                  # (B, n, n), as the stage's M
+        dA = symmetric_tangent(A, seed)
+        n = A.shape[-1]
+        outs, launches = launched(lambda: dual(jacobi_eigh, (A,), (dA,)),
+                                  f"(f) jacobi_eigh under forward_ad, n={n}, B={A.shape[0]}", ("jacobi_eigh",), others)
+        check(launches["jacobi_eigh"] == 1, f"(f) n={n}: kernel 4 once a call")
+        by_name["jacobi_eigh"][f"launches_forward_mode_n{n}"] = launches["jacobi_eigh"]
+        (w, dw), (V, dV) = outs
+        (w64, V64), (dw64, dV64) = torch.func.jvp(
+            torch.linalg.eigh, (A[:FWD_LANES].double().cpu(),), (dA[:FWD_LANES].double().cpu(),))
+        lane_errors(f"n={n}: dw", dw[:FWD_LANES], dw64, FWD_TOL["eigenvalues"])
+        lane_errors(f"n={n}: tangents of the projectors V_i V_i^T",
+                    projector_tangents(V[:FWD_LANES].double(), dV[:FWD_LANES].double()),
+                    projector_tangents(V64, dV64), FWD_TOL["projectors"])
+        if nquad != NQUAD:
+            continue
+        # the eigen stage at the bench shape with dual operands
+        Dp, Dm, mu, w_q = d_rec.operands
+        dDp, dDm = (symmetric_tangent(D.permute(2, 0, 1), s).permute(1, 2, 0).contiguous()
+                    for D, s in ((Dp, 1), (Dm, 2)))
+        stage = lambda a, b: disort_eigh_lanes(a, b, mu, w_q)
+        outs, launches = launched(lambda: dual(stage, (Dp, Dm), (dDp, dDm)),
+                                  f"(f) disort_eigh_lanes with dual operands, N={Dp.shape[0]}, B={Dp.shape[2]}",
+                                  ("jacobi_eigh",), others)
+        check(launches["jacobi_eigh"] == 1, "(f) dual operands take _eig_stage_ad: kernel 4 once, kernel 1 never")
+        by_name["jacobi_eigh"]["launches_forward_mode_eigen_stage"] = launches["jacobi_eigh"]
+        by_name["eig_stage"]["launches_forward_mode_eigen_stage"] = launches["eig_stage"]
+        (K, dK), (X, dX), _, (P, dP), _ = outs
+        lanes = lambda x: x[..., :FWD_LANES].double().cpu()
+        ref = dual(lambda a, b: disort_eigh_lanes(a, b, mu.double().cpu(), w_q.double().cpu()),
+                   (lanes(Dp), lanes(Dm)), (lanes(dDp), lanes(dDm)))
+        (K6, dK6), (X6, dX6), _, (P6, dP6), _ = ref
+        got = spectral_by_k(*(lanes(x) for x in (K, X, P, dK, dX, dP)))
+        want = spectral_by_k(K6, X6, P6, dK6, dX6, dP6)
+        lane_errors("the eigen stage: dK, in ascending K", got[1], want[1], FWD_TOL["eigenvalues"])
+        lane_errors("the eigen stage: tangents of the projectors X_i P_i, matched by ascending K", got[2], want[2],
+                    FWD_TOL["projectors"])
+        # the repaired fault: the kernel's entry refuses dual operands
+        with fwAD.dual_level():
+            dual_ops = (fwAD.make_dual(At, torch.zeros_like(At)), fwAD.make_dual(Bt, torch.zeros_like(Bt)))
+            raises(lambda: cuda_eig.eig_stage_lanes(*dual_ops), NotImplementedError,
+                   "(f) cuda_eig.eig_stage_lanes with dual operands")
+        with fwAD.dual_level():
+            omega = torch.tensor(arrs["omega"], dtype=torch.float32, device="cuda")
+            prob = batched_problem(dict(arrs, omega=fwAD.make_dual(omega, torch.ones_like(omega))), NQUAD,
+                                   torch.float32, "cuda")
+            raises(lambda: solve_fluxes(prob, prob.tau_arr), NotImplementedError,
+                   "(f) solve_fluxes on a dual omega (forward mode through the whole solve, as in the JAX package)")
+
 
 def gradient_step_nquad48(by_name):
     """Phase 6 at NQuad = 48: one gradient step of the 8-column chunk of
@@ -2240,6 +2442,146 @@ def phase_longwave(kernels, card):
     log(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# phase 10: a sweep of SWEEP_CHUNKS full chunks (CHUNK_COLS x NBANDS solves)
+# and one ragged chunk of half as many, through parallel.SweepDriver; the
+# chunks whose manifest entries the resume check deletes
+SWEEP_CHUNKS, SWEEP_DROPPED = 16, (3, 9, 16)
+
+
+def problem_rows(problem, a, b):
+    """Rows a:b of every tensor of a batched problem: views on its device."""
+    import dataclasses
+    import torch
+
+    return dataclasses.replace(problem, **{f.name: getattr(problem, f.name)[a:b]
+                                           for f in dataclasses.fields(problem)
+                                           if isinstance(getattr(problem, f.name), torch.Tensor)})
+
+
+def phase_sweep(kernels, card):
+    """Phase 10: the resumable sweep driver on the card.  bench.py's arrays
+    for SWEEP_CHUNKS full chunks and a ragged one, built once on the card;
+    `SweepDriver.run` with and without overlap in turns, each into a fresh
+    directory under build/; its files against `solve_fluxes` on each chunk's
+    slice and against each other bit for bit, a resume, the ragged chunk
+    against float64 on the CPU, the syncs of a chunk and a trace."""
+    import json as json_mod
+    import shutil
+    import tempfile
+    import torch
+    from pythonic_disort_torch import solve_fluxes
+    from pythonic_disort_torch.parallel import SweepDriver
+
+    t_phase = time.perf_counter()
+    chunk = CHUNK_COLS * NBANDS
+    n_total = SWEEP_CHUNKS * chunk + chunk // 2
+    n_chunks = SWEEP_CHUNKS + 1
+    ncols = n_total // NBANDS
+    log(f"phase 10: the sweep driver, {n_total} solves ({ncols} columns x {NBANDS} bands) in {SWEEP_CHUNKS} "
+        f"chunks of {chunk} and one of {chunk // 2}, L={NLAYERS}, NQuad={NQUAD}, f32, cuda ({card})")
+    t0 = time.perf_counter()
+    arrs = bench_arrays(ncols)
+    problem, tau = make_problem(arrs, torch.float32, "cuda")
+    torch.cuda.synchronize()
+    log(f"  the problem built on the card once in {time.perf_counter() - t0:.1f} s")
+    part = lambda a, b: problem_rows(problem, a, b)
+    depths = lambda a, b: tau[a:b]
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="sweep-", dir=scratch))
+    try:
+        runs = iter(range(1000))
+
+        def sweep(overlap):
+            """A sweep into a fresh directory: (driver, per-chunk times, wall ms)."""
+            driver = SweepDriver(str(work / f"run{next(runs)}"), chunk, overlap=overlap)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            times = driver.run(part, depths, n_total)
+            return driver, times, 1e3 * (time.perf_counter() - t0)
+
+        reset_launches()
+        first, times, first_ms = sweep(True)
+        launches = read_launches()
+        log(f"  launches in the first overlapped sweep: {launches}; {first_ms:.3f} ms")
+        check(launches["eig_stage"] == launches["bvp_fused"] == n_chunks
+              and sum(launches.values()) == 2 * n_chunks,
+              f"the sweep launches kernels 1 and 2 once a chunk ({n_chunks} chunks), no other")
+        for name in ("eig_stage", "bvp_fused"):
+            next(k for k in kernels if k["name"] == name)["launches_sweep"] = launches[name]
+        check(sorted(times) == list(range(n_chunks)), f"run returns the times of all {n_chunks} chunks")
+        out = first.gather()
+        ref = [torch.cat(x).cpu().numpy() for x in zip(*(
+            solve_fluxes(part(a, min(a + chunk, n_total)), depths(a, min(a + chunk, n_total)))
+            for a in range(0, n_total, chunk)))]
+        check(all(out[k].shape == (n_total, NLAYERS) and np.array_equal(out[k], r)
+                  for k, r in zip(("flux_up", "flux_down_diffuse", "flux_down_direct"), ref)),
+              f"gather() equals solve_fluxes on each chunk's slice bit for bit, ({n_total}, {NLAYERS}) each")
+
+        walls = {True: [], False: []}
+        drivers = {}
+        for _ in range(REPS):
+            for overlap in (True, False):
+                drivers[overlap], _, ms = sweep(overlap)
+                walls[overlap].append(ms)
+        for overlap in (True, False):
+            got = drivers[overlap].gather()
+            check(all(np.array_equal(got[k], out[k]) for k in out),
+                  f"the sweep with overlap={overlap} equals the first bit for bit")
+        best = {k: min(v) for k, v in walls.items()}
+        for overlap in (True, False):
+            log(f"  overlap={overlap}: {', '.join(f'{t:.3f}' for t in walls[overlap])} ms (in turns); best "
+                f"{best[overlap]:.3f} ms, {ncols / best[overlap] * 1e3:.3f} columns/s, "
+                f"{best[overlap] / n_chunks:.3f} ms a chunk")
+        log(f"  overlap saves {best[False] - best[True]:.3f} ms of {best[False]:.3f} "
+            f"({1 - best[True] / best[False]:.3f})")
+
+        # resume: three chunks lose their manifest entries
+        path = work / "run0" / "manifest.json"
+        manifest = json_mod.loads(path.read_text())
+        for ci in SWEEP_DROPPED:
+            del manifest["chunks"][str(ci)]
+        path.write_text(json_mod.dumps(manifest))
+        resumed = SweepDriver(str(work / "run0"), chunk)
+        times = resumed.run(part, depths, n_total)
+        check(sorted(times) == list(SWEEP_DROPPED), f"a resume runs exactly chunks {SWEEP_DROPPED}, got {sorted(times)}")
+        got = resumed.gather()
+        check(all(np.array_equal(got[k], out[k]) for k in out), "gather() after the resume is unchanged bit for bit")
+        raises(lambda: SweepDriver(str(work / "mesh"), chunk, mesh=object()), NotImplementedError,
+               "SweepDriver(..., mesh=object())")
+
+        # the ragged chunk against float64 on the CPU
+        a, nref = SWEEP_CHUNKS * chunk, REF_COLS * NBANDS
+        t0 = time.perf_counter()
+        p64, tau64 = make_problem({k: v[a:a + nref] for k, v in arrs.items()}, torch.float64, "cpu")
+        ref64 = [x.numpy() for x in solve_fluxes(p64, tau64)]
+        log(f"  float64 CPU reference ({nref} solves) in {time.perf_counter() - t0:.1f} s")
+        for lbl, r, k in zip(("fup", "fdn", "fdir"), ref64, out):
+            within(r, out[k][a:a + nref].astype(np.float64), f"the ragged chunk's first {nref} rows, {lbl}")
+
+        # host syncs of a chunk, as the sync debug mode sees them
+        for overlap in (True, False):
+            driver = SweepDriver(str(work / f"syncs-{overlap}"), chunk, overlap=overlap)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    driver.run(part, depths, n_total)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs = Counter(str(w.message).splitlines()[0][:100] for w in caught
+                            if "synchroniz" in str(w.message).lower())
+            log(f"  overlap={overlap}: {sum(syncs.values())} synchronizing operations flagged in {n_chunks} chunks "
+                f"({sum(syncs.values()) / n_chunks:.2f} a chunk){': ' + str(dict(syncs)) if syncs else ''}; "
+                f"besides, the drain's wait on its copy's event, once a chunk"
+                + ("" if overlap else " after a device synchronization"))
+        phase_trace(lambda: sweep(True), "phase 10, one overlapped sweep", best[True])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main():
     import torch
 
@@ -2265,6 +2607,7 @@ def main():
     phase_widths(kernels)
     phase_intensity(kernels, card)
     phase_longwave(kernels, card)
+    phase_sweep(kernels, card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,7 @@ import torch
 from ...ops.blocktri import assemble_bvp_blocks
 from ...ops.cuda_blocktri import FUSED_BLOCK_MAX, solve_block_tridiag_lanes_cuda, solve_bvp_fused
 from ...ops.eig import disort_eigh_lanes
+from ...ops.legendre import normalized_assoc_legendre
 from .solve import _power_ladder, _tables, affine_transform_poly_coeffs, iso_particular_tensor, iso_poly_eval
 from .types import DisortProblem, DisortSolution
 
@@ -72,10 +73,6 @@ def solve_batched_probes(problem: DisortProblem, probe_tau: torch.Tensor):
 def _solve(problem: DisortProblem, probe_tau=None):
     """The batched solve; ``(solution, um or None)``."""
     cfg = problem.config
-    if cfg.has_beam and problem.lam_mu0 is None:
-        raise NotImplementedError(
-            "the on-device Legendre table at -mu0 is not ported: build the problem with "
-            "make_batched_problem, which tabulates it on the host")
     N, NF, L = cfg.n, cfg.nfourier, cfg.nlayers
     NLeg, NB, Ns = cfg.nleg, cfg.nbdrf, cfg.nscoeffs
 
@@ -161,7 +158,11 @@ def _solve(problem: DisortProblem, probe_tau=None):
 
     # ---- beam particular solution (reference _solve...py:209-231) ----
     if cfg.has_beam:
-        lam_m0 = problem.lam_mu0.permute(1, 2, 0)               # (NF, NLeg, S)
+        if problem.lam_mu0 is not None:
+            lam_m0 = problem.lam_mu0.permute(1, 2, 0)           # (NF, NLeg, S), tabulated on the host
+        else:
+            # a mu0 that takes a derivative: the table from it, on the device
+            lam_m0 = normalized_assoc_legendre(NF, NLeg, -mu0)  # (NF, NLeg, S)
         xf_parts_p, xf_parts_n = [], []
         for m in range(NF):
             delta_m0 = 1.0 if m == 0 else 2.0

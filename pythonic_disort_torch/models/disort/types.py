@@ -54,7 +54,8 @@ class DisortProblem:
     ``bdrf_modes_mu0[s, m, i] = BDRF_m(mu_i, mu0)`` are pre-evaluated on
     the quadrature grid.  ``lam_mu0`` is the associated-Legendre table at
     ``-mu0``, (S, NF, NLeg), computed on the host when the problem is
-    built.
+    built, or None: the batched solve then builds it on the device from
+    ``mu0`` (a mu0 that takes a derivative).
     """
 
     config: DisortConfig

@@ -9,6 +9,9 @@ rotations and the pivoted elimination need them correctly rounded.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no nvcc.
+
+`refuse_tangents` is the check every kernel entry makes of its operands
+for a forward-mode tangent, which the kernel would drop.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from torch.autograd import forward_ad
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -89,3 +94,17 @@ def load(name: str) -> ctypes.CDLL:
 
 def kernel_sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def has_tangent(x) -> bool:
+    """Whether ``x`` carries a forward-mode tangent (``torch.autograd.forward_ad``),
+    which ``requires_grad`` does not show."""
+    return forward_ad.unpack_dual(x).tangent is not None
+
+
+def refuse_tangents(name: str, operands, route: str) -> None:
+    """Raise ``NotImplementedError`` if an operand carries a forward-mode
+    tangent: a kernel writes through ``data_ptr`` into fresh outputs, so
+    the tangent would be lost.  ``route`` says where tangents go instead."""
+    if any(has_tangent(x) for x in operands):
+        raise NotImplementedError(f"{name}: the kernel carries no forward-mode tangent; {route}")

@@ -65,7 +65,7 @@ def _kernel(name, dtype):
 def _check(name, operands: dict, want: dict) -> None:
     """What the kernels ask of their operands (label -> tensor): CUDA
     tensors on one device, one of float32/float64, the shapes ``want``,
-    contiguous."""
+    contiguous, without a forward-mode tangent."""
     ops = tuple(operands.values())
     if any(x.device.type != "cuda" or x.device != ops[0].device for x in ops):
         raise ValueError(f"{name}: all operands must be CUDA tensors on one device")
@@ -76,6 +76,8 @@ def _check(name, operands: dict, want: dict) -> None:
             raise ValueError(f"{name}: {label} must be {want[label]}, got {tuple(x.shape)}")
     if not all(x.is_contiguous() for x in ops):
         raise ValueError(f"{name}: contiguous operands expected")
+    _build.refuse_tangents(name, ops, "forward mode through the block-Thomas solve is not supported, as in "
+                           "the JAX package, whose solve is a custom VJP")
 
 
 def _launch(name, operands, scratch, x, sizes) -> torch.Tensor:

@@ -78,6 +78,8 @@ def _check(At: torch.Tensor, Bt: torch.Tensor) -> None:
         raise NotImplementedError(
             "eig_stage_lanes: the kernel takes no gradient; ops.eig.disort_eigh_lanes routes operands "
             "that require one through _eig_stage_ad and the Jacobi kernel (ops/jacobi.py)")
+    _build.refuse_tangents("eig_stage_lanes", (At, Bt),
+                           "ops.eig.disort_eigh_lanes routes dual operands through _eig_stage_ad")
 
 
 def eig_stage_lanes(At: torch.Tensor, Bt: torch.Tensor):

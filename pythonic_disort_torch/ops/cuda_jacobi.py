@@ -56,6 +56,7 @@ def _check(name: str, At: torch.Tensor) -> None:
         raise ValueError(f"{name}: (n, n, B) operand with n, B >= 1 expected, got {tuple(At.shape)}")
     if not At.is_contiguous():
         raise ValueError(f"{name}: contiguous operand expected")
+    _build.refuse_tangents(name, (At,), "jacobi.jacobi_eigh carries the tangent rule")
 
 
 def jacobi_eigh_lanes(At: torch.Tensor, sweeps: int):

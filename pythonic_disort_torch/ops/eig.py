@@ -14,11 +14,13 @@ physical eigenbasis.  `disort_eigh` is the padded (..., N, N) interface:
 it flattens the leading axes into lanes around `disort_eigh_lanes`.
 
 Kernel 1 takes even n <= 32, the sizes of the TPU kernel.  At odd n and
-n > 32, and under a gradient (grad mode on and At or Bt requiring one),
-the stage is `_eig_stage_ad` instead: the Cholesky factor, the congruence
-and the back-transforms in differentiable tensor code around
-`jacobi.jacobi_eigh` (CUDA kernel 4 or 5 on the card), which carries the
-eigh derivative rule.  It is the counterpart of the JAX package's
+n > 32, under a gradient (grad mode on and At or Bt requiring one) and
+under forward mode (At or Bt carrying a ``torch.autograd.forward_ad``
+tangent, which ``requires_grad`` does not show), the stage is
+`_eig_stage_ad` instead: the Cholesky factor, the congruence and the
+back-transforms in differentiable tensor code around `jacobi.jacobi_eigh`
+(CUDA kernel 4 or 5 on the card), which carries the eigh derivative rules
+of both modes.  It is the counterpart of the JAX package's
 ``_eig_stage_lanes_jnp`` (its route at n > 32) and ``_eig_stage_ad`` (the
 tangent path of its fused stage).  The route is chosen by n on either
 device; only the innermost Jacobi depends on it.
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ._build import has_tangent
 from .cuda_eig import STAGE_MAX, eig_stage_lanes
 from .jacobi import jacobi_eigh
 
@@ -55,10 +58,10 @@ def _eig_stage_ad(At: torch.Tensor, Bt: torch.Tensor):
 def _eig_stage(At: torch.Tensor, Bt: torch.Tensor):
     """The eigen stage on lanes operands (n, n, B): kernel 1 at even
     n <= 32, or `_eig_stage_ad` in the padded layout at any other n and
-    when a gradient is taken."""
+    when a gradient or a forward-mode tangent is taken."""
     n = At.shape[0]
     grad = torch.is_grad_enabled() and (At.requires_grad or Bt.requires_grad)
-    if grad or n % 2 or n > STAGE_MAX:
+    if grad or has_tangent(At) or has_tangent(Bt) or n % 2 or n > STAGE_MAX:
         K, *mats = _eig_stage_ad(At.permute(2, 0, 1), Bt.permute(2, 0, 1))
         return (K.T, *(x.permute(1, 2, 0) for x in mats))
     return eig_stage_lanes(At.contiguous(), Bt.contiguous())

@@ -13,8 +13,9 @@ for CUDA tensors it launches ``csrc/jacobi_eigh.cu``
 (`cuda_jacobi.jacobi_eigh_lanes`) at even n <= 32, the sizes the TPU
 kernel takes, and ``csrc/jacobi_eigh_wide.cu``
 (`cuda_jacobi.jacobi_eigh_lanes_wide`) at every other n.  `jacobi_eigh` is the padded (..., n, n) interface with
-the first-order reverse-mode rule of the symmetric eigendecomposition;
-the gradient path of the eigen stage (`ops.eig`) runs through it.
+the first-order rules of the symmetric eigendecomposition, reverse mode
+and forward mode; the gradient and tangent path of the eigen stage
+(`ops.eig`) runs through it.
 """
 
 from __future__ import annotations
@@ -125,11 +126,19 @@ def jacobi_eigh_lanes_raw(At: torch.Tensor, sweeps: int | None = None):
     return cuda_jacobi.jacobi_eigh_lanes_wide(At, sweeps)
 
 
+def _gap_inverse(w):
+    """``F_ij = 1/(w_j - w_i)`` where the gap is nonzero, 0 where it is zero."""
+    gap = w[:, None, :] - w[:, :, None]                             # w_j - w_i
+    return torch.where(gap != 0, 1.0 / torch.where(gap == 0, torch.ones_like(gap), gap),
+                       torch.zeros_like(gap))
+
+
 class _JacobiEigh(torch.autograd.Function):
-    """``(w, V) = eigh(A)`` on (B, n, n); backward is the transpose of the
-    symmetric-eigendecomposition differential ``dw = diag(S)``,
-    ``dV = V (F o S)`` with ``S = V^T dA V`` and ``F_ij = 1/(w_j - w_i)``
-    where the gap is nonzero, 0 where it is zero."""
+    """``(w, V) = eigh(A)`` on (B, n, n).  Its differential, the rule of
+    the JAX package's ``_eigh_jvp_rule``: with ``S = V^T dA V``,
+    ``dw = diag(S)`` and ``dV = V (F o S)`` (`_gap_inverse`).  ``jvp`` is
+    that differential at the outputs as returned (sorted or not), and
+    ``backward`` its transpose."""
 
     @staticmethod
     def forward(ctx, A, sweeps, sort):
@@ -142,16 +151,20 @@ class _JacobiEigh(torch.autograd.Function):
             V = torch.take_along_dim(V, order[:, None, :].expand(-1, n, -1), dim=-1)
         w, V = w.contiguous(), V.contiguous()
         ctx.save_for_backward(w, V)
+        ctx.save_for_forward(w, V)
         return w, V
+
+    @staticmethod
+    def jvp(ctx, dA, _sweeps, _sort):
+        w, V = ctx.saved_tensors
+        S = V.mT @ dA @ V
+        return torch.diagonal(S, dim1=-2, dim2=-1), V @ (_gap_inverse(w) * S)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, w_bar, V_bar):
         w, V = ctx.saved_tensors
-        gap = w[:, None, :] - w[:, :, None]                         # w_j - w_i
-        F = torch.where(gap != 0, 1.0 / torch.where(gap == 0, torch.ones_like(gap), gap),
-                        torch.zeros_like(gap))
-        inner = torch.zeros_like(V) if V_bar is None else F * (V.mT @ V_bar)
+        inner = torch.zeros_like(V) if V_bar is None else _gap_inverse(w) * (V.mT @ V_bar)
         if w_bar is not None:
             inner = inner + torch.diag_embed(w_bar)
         return V @ inner @ V.mT, None, None
@@ -162,7 +175,8 @@ def jacobi_eigh(A: torch.Tensor, sweeps: int | None = None, sort: bool = True):
 
     Returns ``(w (..., n), V (..., n, n))`` with ``A = V diag(w) V^T``,
     eigenvalues ascending (``sort=False`` leaves them in the order the
-    sweeps produce).  First-order reverse mode only.
+    sweeps produce).  First-order derivatives in reverse mode
+    (``torch.autograd``) and forward mode (``torch.autograd.forward_ad``).
     """
     n = A.shape[-1]
     batch_shape = tuple(A.shape[:-2])

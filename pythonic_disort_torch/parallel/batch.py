@@ -21,6 +21,7 @@ from ..models.disort import eval as ev
 from ..models.disort import nt
 from ..models.disort.batch_solve import solve_batched, solve_batched_probes
 from ..models.disort.types import DisortConfig, DisortProblem
+from ..ops._build import has_tangent
 from ..ops.legendre import normalized_assoc_legendre_host
 
 
@@ -52,9 +53,13 @@ def make_batched_problem(
     """Assemble a batched problem (leading axis = batch) on ``device``.
 
     The beam's Legendre basis at ``-mu0`` is tabulated on the host here
-    (``lam_mu0``, (B, NF, NLeg)), so a mu0 that requires a gradient is
-    refused.  A tensor argument is used as it is when its dtype and device
-    match, so its graph reaches the solve (gradients w.r.t. omega, tau, ...).
+    (``lam_mu0``, (B, NF, NLeg)), except for a mu0 tensor that requires a
+    gradient or carries a forward-mode tangent: that mu0 becomes the
+    problem's own, ``lam_mu0`` stays None, and the solve builds the table
+    on the device from it, so d lam(-mu0) / d mu0 stays in the graph (the
+    JAX package's route for a traced mu0).  A tensor argument is used as
+    it is when its dtype and device match, so its graph reaches the solve
+    (gradients w.r.t. omega, tau, mu0, ...).
     """
     device = _device(device)
     B, L = np.shape(tau_arr)
@@ -67,16 +72,12 @@ def make_batched_problem(
             return x.to(dtype=dtype, device=device)
         return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
-    if isinstance(mu0, torch.Tensor):
-        if mu0.requires_grad:
-            raise NotImplementedError(
-                "batched gradients with respect to mu0 are not ported (lam_mu0 is tabulated on the host; "
-                "the single-column solve takes them): ROADMAP queue 1, item 8")
-        mu0_host = mu0.detach().cpu().double().numpy()
+    if isinstance(mu0, torch.Tensor) and (mu0.requires_grad or has_tangent(mu0)):
+        lam_mu0 = None
     else:
-        mu0_host = np.asarray(mu0, np.float64)
-    lam_mu0 = np.transpose(
-        normalized_assoc_legendre_host(NF, config.nleg, -mu0_host), (2, 0, 1))
+        mu0_host = (mu0.detach().cpu().double().numpy() if isinstance(mu0, torch.Tensor)
+                    else np.asarray(mu0, np.float64))
+        lam_mu0 = _arr(np.transpose(normalized_assoc_legendre_host(NF, config.nleg, -mu0_host), (2, 0, 1)))
 
     return DisortProblem(
         config=config,
@@ -92,7 +93,7 @@ def make_batched_problem(
         s_poly_coeffs=_arr(s_poly_coeffs, (L, max(config.nscoeffs, 1))),
         bdrf_modes=_arr(bdrf_modes, (max(config.nbdrf, 1), N, N)),
         bdrf_modes_mu0=_arr(bdrf_modes_mu0, (max(config.nbdrf, 1), N)),
-        lam_mu0=_arr(lam_mu0),
+        lam_mu0=lam_mu0,
     )
 
 

@@ -223,21 +223,22 @@ def time_versions(versions, reps=10):
             print(f"    {' '.join(f'{t:.4f}' for t in ts)}  {name}", flush=True)
 
 
-def gradient_step(arrs, dtype, device, nquad=32):
-    """One gradient step of the batched path as a function: d loss / d omega
+def gradient_step(arrs, dtype, device, nquad=32, wrt="omega"):
+    """One gradient step of the batched path as a function: d loss / d wrt
     of the arrays ``arrs`` (`check_bvp.bench_arrays`'s keys) with loss =
     sum(fup^2) + sum(fdn * fdir) (the loss of
-    tests_tpu/test_tpu_production.py's gradient test), omega a leaf that
-    make_batched_problem keeps as the problem's own."""
+    tests_tpu/test_tpu_production.py's gradient test), ``arrs[wrt]``
+    (``"omega"`` or ``"mu0"``) a leaf that make_batched_problem keeps as
+    the problem's own."""
     import pythonic_disort_torch as pt
     from .check_bvp import batched_problem
 
-    omega = torch.tensor(arrs["omega"], dtype=dtype, device=device, requires_grad=True)
-    prob = batched_problem(dict(arrs, omega=omega), nquad, dtype, device)
+    leaf = torch.tensor(arrs[wrt], dtype=dtype, device=device, requires_grad=True)
+    prob = batched_problem(dict(arrs, **{wrt: leaf}), nquad, dtype, device)
 
     def step():
         fup, fdn, fdir = pt.solve_fluxes(prob, prob.tau_arr)
-        return torch.autograd.grad((fup**2).sum() + (fdn * fdir).sum(), omega)[0]
+        return torch.autograd.grad((fup**2).sum() + (fdn * fdir).sum(), leaf)[0]
 
     return step
 

@@ -502,16 +502,6 @@ def test_batched_grad_wrt_iso_source():
         close(g, g_ref, label=name)
 
 
-def test_batched_mu0_gradient_still_refused():
-    """The batched beam table lam(-mu0) is tabulated on the host."""
-    cfg = pt.DisortConfig(nquad=8, nleg=8, nleg_all=9, nfourier=1, nlayers=1, nscoeffs=0, nbdrf=0,
-                          has_beam=True, only_flux=True, has_deltam=False)
-    mu0 = torch.full((2,), 0.5, dtype=f64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="mu0"):
-        pt.make_batched_problem(cfg, np.ones((2, 1)), np.full((2, 1), 0.5), np.ones((2, 1, 9)), mu0,
-                                np.full(2, pi), dtype=f64, device="cpu")
-
-
 def test_config_tables_never_require_grad():
     problem, tau = _problem(3, 1, True, False, False, True, True, S=2)
     port = to_port(problem)
