@@ -55,7 +55,17 @@ solves, and drives both paths of the port:
   solve raising under forward mode;
 - the resumable sweep driver (phase 10): ``parallel.SweepDriver`` over 16
   bench chunks and a ragged one, with and without overlap, its files
-  against ``solve_fluxes`` bit for bit, a resume, its syncs and a trace.
+  against ``solve_fluxes`` bit for bit, a resume, its syncs and a trace;
+- the mesh (phase 11): ``parallel.default_mesh``, ``shard_batch`` and
+  ``solve_fluxes_sharded`` at world 1 in this process on the main-path
+  chunk (bit for bit, launches, no collective, no added synchronization,
+  timed in turns with ``solve_fluxes``); then two gloo ranks of
+  ``pythonic_disort_torch/tools/mesh_worker.py`` sharing the card: the
+  bench flux sweep of 16 columns (one chunk a rank) against the unsharded
+  solve and float64, ``global_flux_stats`` as an ``all_reduce`` of CUDA
+  tensors, the intensity chunk on a ``("columns", "bands")`` mesh, and
+  ``SweepDriver`` with the mesh against phase 10's sweep, with a resume.
+  A rank that fails, hangs or prints no ``OK`` fails the run.
 
 Every failed check raises, so the exit code is nonzero.  Its last two
 lines are a JSON line of per-kernel numbers and ``{"ok": true, "device":
@@ -87,8 +97,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
 # cuSOLVER's batched eigh (behind torch.linalg.eigh on the card) refuses
 # 32768 or more 16x16 matrices in one call (CUSOLVER_STATUS_INVALID_VALUE
-# with torch 2.11 / CUDA 12.8), so the plain eigen stage and the library
-# yardstick are timed in lane chunks.
+# with torch 2.11 / CUDA 12.8), so the library yardstick is timed in lane
+# chunks, and the plain eigen stage (plain Jacobi) in the same ones.
 EIGH_CHUNK = 16384
 # The float32 gradient's bound per row, 2e-3 x max|g_ref|, grows by
 # (POLE / d)^2 on a row whose distance d to the beam pole (see
@@ -149,18 +159,11 @@ def rows(arrs, n):
 def intensity_problem(arrs, dtype, device):
     """bench.py:117-177's intensity configuration (NQuad = 32, NFourier =
     16, delta-M beam, NT corrections) with its probes, tau (1 - 1e-6) at
-    each layer's bottom, and four azimuths."""
-    import torch
-    import pythonic_disort_torch as pt
+    each layer's bottom, and four azimuths (the mesh worker's, which phase
+    11's ranks build)."""
+    from pythonic_disort_torch.tools.mesh_worker import intensity_problem as problem
 
-    cfg = pt.DisortConfig(
-        nquad=NQUAD, nleg=NQUAD, nleg_all=NQUAD + 1, nfourier=INT_NFOURIER, nlayers=arrs["tau"].shape[1],
-        nscoeffs=0, nbdrf=0, has_beam=True, only_flux=False, has_deltam=True, nt_correct=True)
-    prob = pt.make_batched_problem(cfg, arrs["tau"], arrs["omega"], arrs["leg"], arrs["mu0"], arrs["I0"],
-                                   f_arr=arrs["f_arr"], dtype=dtype, device=device)
-    S = arrs["tau"].shape[0]
-    phi = torch.tensor(INT_PHI, dtype=dtype, device=device).expand(S, len(INT_PHI)).contiguous()
-    return prob, prob.tau_arr * (1 - 1e-6), phi
+    return problem(arrs, dtype, device, INT_NFOURIER, INT_PHI)
 
 
 def longwave_arrays(ncols, seed=42):
@@ -986,7 +989,7 @@ def phase_intensity_kernels(kernels):
     del problem
     At, Bt = ops["eig"]
     n, _, B = At.shape
-    # the float64 plain stage on the card, in lanes chunks (cuSOLVER's limit)
+    # the float64 plain stage on the card, in lanes chunks
     Kp = torch.cat([eig_stage_lanes_plain(At[..., b:b + EIGH_CHUNK].double(), Bt[..., b:b + EIGH_CHUNK].double())[0]
                     for b in range(0, B, EIGH_CHUNK)], dim=-1)
     eig_abs, eig_rel = eig_checks(At, Bt, f"eig n={n} B={B} f32 (intensity chunk)", full=True, Kp=Kp)
@@ -2448,29 +2451,21 @@ def phase_longwave(kernels, card):
 SWEEP_CHUNKS, SWEEP_DROPPED = 16, (3, 9, 16)
 
 
-def problem_rows(problem, a, b):
-    """Rows a:b of every tensor of a batched problem: views on its device."""
-    import dataclasses
-    import torch
-
-    return dataclasses.replace(problem, **{f.name: getattr(problem, f.name)[a:b]
-                                           for f in dataclasses.fields(problem)
-                                           if isinstance(getattr(problem, f.name), torch.Tensor)})
-
-
 def phase_sweep(kernels, card):
     """Phase 10: the resumable sweep driver on the card.  bench.py's arrays
     for SWEEP_CHUNKS full chunks and a ragged one, built once on the card;
     `SweepDriver.run` with and without overlap in turns, each into a fresh
     directory under build/; its files against `solve_fluxes` on each chunk's
     slice and against each other bit for bit, a resume, the ragged chunk
-    against float64 on the CPU, the syncs of a chunk and a trace."""
+    against float64 on the CPU, the syncs of a chunk and a trace.  Returns
+    the first sweep's ``gather()``."""
     import json as json_mod
     import shutil
     import tempfile
     import torch
     from pythonic_disort_torch import solve_fluxes
     from pythonic_disort_torch.parallel import SweepDriver
+    from pythonic_disort_torch.tools.mesh_worker import problem_rows
 
     t_phase = time.perf_counter()
     chunk = CHUNK_COLS * NBANDS
@@ -2547,8 +2542,6 @@ def phase_sweep(kernels, card):
         check(sorted(times) == list(SWEEP_DROPPED), f"a resume runs exactly chunks {SWEEP_DROPPED}, got {sorted(times)}")
         got = resumed.gather()
         check(all(np.array_equal(got[k], out[k]) for k in out), "gather() after the resume is unchanged bit for bit")
-        raises(lambda: SweepDriver(str(work / "mesh"), chunk, mesh=object()), NotImplementedError,
-               "SweepDriver(..., mesh=object())")
 
         # the ragged chunk against float64 on the CPU
         a, nref = SWEEP_CHUNKS * chunk, REF_COLS * NBANDS
@@ -2580,6 +2573,208 @@ def phase_sweep(kernels, card):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
+# phase 11: the mesh.  (a) world 1 in this process on the main-path chunk;
+# (b) MESH_RANKS gloo ranks of tools/mesh_worker.py sharing the card (NCCL
+# refuses two ranks on one device), each on its own rows: bench.py's flux
+# sweep of MESH_COLS columns (one main-path chunk a rank), the intensity
+# chunk on a (ranks, 1) ("columns", "bands") mesh, and SweepDriver with the
+# mesh over the first 4.5 chunks of phase 10's arrays.  Sharded rows against
+# the unsharded float32 solve within MESH_TOL x max(|f|, 1) (the bound of
+# __graft_entry__.py:163-170), grown by POLE / d on a row whose distance d
+# to the beam pole (`beam_pole_distance`) is below POLE: half the batch runs
+# the plain tensor code's reductions in another order, and the particular
+# solution there magnifies the last bits by about 1 / d (the unsharded and
+# the sharded row lie equally far from float64); the ranks' wait,
+# MESH_TIMEOUT s.
+MESH_RANKS, MESH_COLS, MESH_TOL, MESH_TIMEOUT = 2, 16, 1e-5, 300
+
+
+def pole_growth(problem):
+    """Per row of a batched problem, max(1, POLE / d): d the distance to the
+    beam pole, min |K mu0 - 1| over its layers, modes and eigenvalues K of
+    its float32 solve on the card."""
+    from pythonic_disort_torch.models.disort.batch_solve import solve_batched
+
+    N = problem.config.n
+    K = solve_batched(problem).K[..., N:].double()                    # (S, NF, L, N), K > 0
+    d = (K * problem.mu0.double()[:, None, None, None] - 1).abs().amin(dim=(1, 2, 3))
+    return (POLE / d).clamp(min=1.0).cpu().numpy()
+
+
+def near(a, b, label, growth, scale=None):
+    """Per row (the leading axis), |a - b| < MESH_TOL x scale x growth, the
+    scale max(|b|, 1) unless given; logs the rows near the beam pole that
+    needed the growth.  Returns whether a equals b bit for bit."""
+    bound = MESH_TOL
+    scale = max(float(np.abs(b).max()), 1.0) if scale is None else scale
+    d = np.abs(a.astype(np.float64) - b.astype(np.float64)).reshape(len(a), -1).max(axis=1)
+    far = growth == 1
+    equal = bool(np.array_equal(a, b))
+    log(f"  {label}: max |sharded - unsharded| = {d.max():.3e}, {d[far].max(initial=0):.3e} on the "
+        f"{int(far.sum())} rows at d >= {POLE:g} (bound {bound * scale:.3e}); {int((d >= bound * scale).sum())} rows "
+        f"above it, each within its growth POLE / d (largest (|diff| / bound) / growth "
+        f"{(d / (bound * scale * growth)).max():.3f}); bit for bit: {equal}")
+    check(np.isfinite(a).all() and (d < bound * scale * growth).all(),
+          f"{label} within {bound:g} x {scale:.3g} x max(1, POLE / d) of the unsharded solve")
+    return equal
+
+
+def flagged_syncs(run):
+    """The synchronizing operations the sync debug mode flags in ``run()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def phase_mesh(problem, tau, kernels, card, sweep_out):
+    """Phase 11: the sharded entries on the card, in this process at world 1
+    (a) and over MESH_RANKS ranks of ``tools/mesh_worker.py`` sharing the
+    card through gloo (b)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from pythonic_disort_torch import solve_fluxes, solve_intensity
+    from pythonic_disort_torch.ops import _build
+    from pythonic_disort_torch.parallel import (
+        SweepDriver, count_collectives, default_mesh, initialize_distributed, shard_batch, solve_fluxes_sharded)
+    from pythonic_disort_torch.tools import mesh_worker
+
+    t_phase = time.perf_counter()
+    log(f"phase 11: the mesh ({card})")
+    log(f"  (a) world 1 in this process: {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}, NQuad={NQUAD}, f32")
+    mesh = default_mesh()
+    check(mesh.world == 1 and mesh.device == torch.device("cuda", 0) and mesh.groups == (None,),
+          "default_mesh() without a process group: one rank on cuda:0, no group")
+    local, tau_s = shard_batch(problem, mesh), shard_batch(tau, mesh)
+    check(local.tau_arr.data_ptr() == problem.tau_arr.data_ptr() and tau_s.data_ptr() == tau.data_ptr(),
+          "shard_batch at world 1 hands on views: no copy")
+    reset_launches()
+    outs, counts = count_collectives(solve_fluxes_sharded, local, tau_s, mesh)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"  launches: {launches}; collectives: {counts}")
+    check(launches["eig_stage"] == 1 and launches["bvp_fused"] == 1 and sum(launches.values()) == 2,
+          "solve_fluxes_sharded launches kernels 1 and 2 once each, no other")
+    check(all(v == 0 for v in counts.values()), "count_collectives reads zero for every kind")
+    check(all(torch.equal(a, b) for a, b in zip(outs, solve_fluxes(problem, tau))),
+          "solve_fluxes_sharded equals solve_fluxes bit for bit")
+    syncs = {name: flagged_syncs(run) for name, run in (
+        ("solve_fluxes", lambda: solve_fluxes(problem, tau)),
+        ("solve_fluxes_sharded", lambda: solve_fluxes_sharded(local, tau_s, mesh)))}
+    log(f"  synchronizing operations flagged in one call: {syncs}")
+    check(syncs["solve_fluxes_sharded"] == syncs["solve_fluxes"], "the sharded entry adds no synchronization")
+    walls = {"solve_fluxes": [], "solve_fluxes_sharded": []}
+    for _ in range(REPS):
+        walls["solve_fluxes"].append(best_ms(lambda: solve_fluxes(problem, tau), N_CHUNKS, reps=1))
+        walls["solve_fluxes_sharded"].append(best_ms(lambda: solve_fluxes_sharded(local, tau_s, mesh), N_CHUNKS,
+                                                     reps=1))
+    for name, t in walls.items():
+        log(f"  {name}: {', '.join(f'{x:.3f}' for x in t)} ms a chunk (in turns, {N_CHUNKS} chunks each); "
+            f"best {min(t):.3f} ms, {CHUNK_COLS / min(t) * 1e3:.3f} columns/s")
+
+    log(f"  (b) {MESH_RANKS} gloo ranks sharing the card ({card})")
+    raises(lambda: initialize_distributed("127.0.0.1:1", MESH_RANKS, 0, backend="nccl"), ValueError,
+           f"initialize_distributed with NCCL for {MESH_RANKS} ranks on one card")
+    check(all(_build._target(n).exists() for n in _build.kernel_sources()),
+          "phase 2 built every kernel: the ranks load them and build none")
+    work = Path(tempfile.mkdtemp(prefix="mesh-", dir=Path(__file__).resolve().parent / "build"))
+    try:
+        t0 = time.perf_counter()
+        ranks = mesh_worker.run_ranks(
+            MESH_RANKS, ["bench", "bench_intensity", "bench_sweep"], work, device="cuda", backend="gloo",
+            timeout=MESH_TIMEOUT, env=dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2))),
+            sweep_dir=work / "sweep")
+        ranks_s = time.perf_counter() - t0
+        sweep = SweepDriver(str(work / "sweep"), mesh_worker.SWEEP_CHUNK).gather()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  the {MESH_RANKS} ranks ran in {ranks_s:.1f} s (start, kernels loaded, cases, float64 references)")
+    for rank, (meta, _) in enumerate(ranks):
+        check(meta["backend"] == "gloo" and meta["device"] == "cuda:0", f"rank {rank}: gloo on cuda:0")
+
+    # the bench sweep: each rank one main-path chunk
+    arrs = bench_arrays(MESH_COLS)
+    full, ftau = make_problem(arrs, torch.float32, "cuda")
+    ref = [x.cpu().numpy() for x in solve_fluxes(full, ftau)]
+    growth = pole_growth(full)
+    del full, ftau
+    bit_equal = []
+    for rank, (meta, arr) in enumerate(ranks):
+        m = meta["bench"]
+        (a, b), = m["index"]
+        check((a, b) == (rank * CHUNK_COLS * NBANDS, (rank + 1) * CHUNK_COLS * NBANDS),
+              f"rank {rank} holds solves {a}:{b}")
+        log(f"  rank {rank}: launches {m['launches']}, collectives {m['counts']}; global_flux_stats "
+            f"{m['stat_counts']} on {m['stat_device']}; float64 reference in {m['ref_s']:.1f} s")
+        check(m["launches"] == {"eig_stage": 1, "bvp_fused": 1, "blocktri": 0},
+              f"rank {rank}: kernels 1 and 2 launched once, kernel 3 not")
+        check(all(v == 0 for v in m["counts"].values()), f"rank {rank}: count_collectives of the solve reads zero")
+        bit_equal.append(all([near(arr[f"bench_{k}"], r[a:b], f"rank {rank} {k}", growth[a:b])
+                              for k, r in zip(("fup", "fdn", "fdir"), ref)]))
+        for k in ("fup", "fdn", "fdir"):
+            within(arr[f"bench_ref_{k}"], arr[f"bench_{k}"][:mesh_worker.REF_ROWS].astype(np.float64),
+                   f"rank {rank}'s first {mesh_worker.REF_ROWS} rows, {k}")
+        mean = float(ref[0].astype(np.float64).mean())
+        log(f"  rank {rank}: global_flux_stats {m['stat']:.9g}, unsharded mean {mean:.9g}")
+        check(m["stat_counts"]["all-reduce"] == 1 and m["stat_device"] == "cuda:0"
+              and abs(m["stat"] - mean) < 1e-6 * abs(mean),
+              f"rank {rank}: global_flux_stats is one all_reduce of CUDA tensors through gloo, within 1e-6 "
+              "of the unsharded mean")
+    for k in kernels[:2]:
+        k["launches_sharded"] = [meta["bench"]["launches"][k["name"]] for meta, _ in ranks]
+        k["launches_sharded_on"] = f"{MESH_RANKS} gloo ranks on one card, one main-path chunk a rank"
+
+    # the intensity chunk on a (ranks, 1) (columns, bands) mesh
+    iprob, itau, iphi = intensity_problem(bench_arrays(INT_COLS, seed=7), torch.float32, "cuda")
+    u_ref = solve_intensity(iprob, itau, iphi, probes_per_layer=True).cpu().numpy()
+    u_growth = pole_growth(iprob).reshape(INT_COLS, -1)
+    del iprob, itau, iphi
+    u_ref = u_ref.reshape((INT_COLS, -1) + u_ref.shape[1:])
+    for rank, (meta, arr) in enumerate(ranks):
+        m = meta["bench_intensity"]
+        idx = tuple(slice(a, b) for a, b in m["index"])
+        log(f"  rank {rank} (coordinates {m['coords']}): intensity rows {m['index']}, launches {m['launches']}, "
+            f"collectives {m['counts']}")
+        check(m["launches"]["eig_stage"] == 1 and m["launches"]["bvp_fused"] == 1
+              and all(v == 0 for v in m["counts"].values()),
+              f"rank {rank}: the sharded intensity launches kernels 1 and 2 once, no collective")
+        near(arr["bench_intensity_u"][0], u_ref[idx][0], f"rank {rank} u, scale max|u|", u_growth[idx][0],
+             scale=float(np.abs(u_ref).max()))
+
+    # SweepDriver over the mesh against phase 10's single-device sweep
+    n = mesh_worker.SWEEP_TOTAL
+    sweep_growth = pole_growth(make_problem(rows(bench_arrays(mesh_worker.SWEEP_COLS), n), torch.float32, "cuda")[0])
+    sweep_equal = all([near(sweep[k], sweep_out[k][:n], f"the mesh sweep's {n} rows, {k}", sweep_growth)
+                       for k in sweep])
+    for rank, (meta, _) in enumerate(ranks):
+        m = meta["bench_sweep"]
+        log(f"  rank {rank}: sweep chunks {m['ran']}, launches {m['launches']}, collectives {m['counts']}; "
+            f"resumed {m['resumed']}")
+        check(m["ran"] == list(range(5)) and m["launches"]["eig_stage"] == 5 and m["launches"]["bvp_fused"] == 5,
+              f"rank {rank}: the mesh sweep runs its 5 chunks, kernels 1 and 2 once a chunk")
+        check(m["resumed"] == list(mesh_worker.SWEEP_DROPPED),
+              f"rank {rank}: the resume runs exactly chunks {list(mesh_worker.SWEEP_DROPPED)}")
+    check(ranks[0][0]["bench_sweep"]["resume_equal"], "the resumed directory equals the first sweep bit for bit")
+
+    log(f"  time-shared on one card: not a scaling measurement ({card})")
+    for rank, (meta, _) in enumerate(ranks):
+        log(f"    rank {rank}: bench chunk {meta['bench']['ms']:.3f} ms (best of 3), intensity chunk "
+            f"{meta['bench_intensity']['ms']:.3f} ms, mesh sweep {meta['bench_sweep']['wall_ms']:.3f} ms; "
+            + ", ".join(f"{c} {meta[c]['seconds']:.1f} s" for c in ("bench", "bench_intensity", "bench_sweep")))
+    log(f"  bit for bit against the unsharded solve: bench ranks {bit_equal}, the mesh sweep {sweep_equal}")
+    log(f"  phase 11 took {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def main():
@@ -2607,7 +2802,8 @@ def main():
     phase_widths(kernels)
     phase_intensity(kernels, card)
     phase_longwave(kernels, card)
-    phase_sweep(kernels, card)
+    sweep_out = phase_sweep(kernels, card)
+    phase_mesh(problem, tau, kernels, card, sweep_out)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,9 +8,13 @@ the lanes-layout operands ``At``, ``Bt`` (n, n, B)::
     V = L^-T Z,  Yr = -(L Z) / K,  Pr = (L Z)^T,  Qr = -K V^T
 
 `eig_stage_lanes` launches the kernel for CUDA tensors and runs
-`eig_stage_lanes_plain` for CPU tensors.  The two differ in the order of
-the eigen columns (the kernel's one-sided Jacobi leaves them unsorted),
-which no consumer depends on: the boundary-value coefficients adapt.
+`eig_stage_lanes_plain` for CPU tensors.  Both diagonalize M by Jacobi
+(the kernel one-sided, the plain version two-sided, the JAX package's
+CPU route ``_eig_stage_lanes_jnp``), which keeps the relative digits of a
+small eigenvalue K^2 near omega = 1, where LAPACK's ``eigh`` in float32
+is accurate only to about eps ||M||.  Both leave the eigen columns
+unsorted, each in its own order, which no consumer depends on: the
+boundary-value coefficients adapt.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import ctypes
 import torch
 
 from . import _build
+from .jacobi import default_sweeps, jacobi_eigh_lanes_plain
 
 
 STAGE_MAX = 32    # the kernel takes even n up to this (ops/eig.py routes the rest)
@@ -32,15 +37,18 @@ def jacobi_sweeps(dtype: torch.dtype) -> int:
 
 
 def eig_stage_lanes_plain(At: torch.Tensor, Bt: torch.Tensor):
-    """Plain PyTorch eigen stage on (n, n, B) lanes operands.
+    """Plain PyTorch eigen stage on (n, n, B) lanes operands, on any device.
 
-    Returns ``(K (n, B), V, Yr, Pr, Qr (n, n, B))`` with K ascending.
+    Returns ``(K (n, B), V, Yr, Pr, Qr (n, n, B))``, the eigen columns
+    unsorted: M = L^T (-At) L is diagonalized by the plain two-sided
+    Jacobi (`jacobi.jacobi_eigh_lanes_plain`, `jacobi.default_sweeps`).
     """
     A = At.permute(2, 0, 1)
     Bm = Bt.permute(2, 0, 1)
     L = torch.linalg.cholesky(-Bm)
     M = L.transpose(-1, -2) @ (-A) @ L
-    K2, Z = torch.linalg.eigh(M)
+    K2, Z = jacobi_eigh_lanes_plain(M.permute(1, 2, 0), default_sweeps(At.shape[0], At.dtype))
+    K2, Z = K2.T, Z.permute(2, 0, 1)
     K = torch.sqrt(torch.clamp(K2, min=torch.finfo(At.dtype).tiny))
     V = torch.linalg.solve_triangular(L.transpose(-1, -2), Z, upper=True)
     LZ = L @ Z

@@ -8,10 +8,15 @@ batch axis is written out as the leading axis of every tensor, and the
 evaluators run on the whole batch at once.  Problems are
 built on ``cuda`` unless the caller passes ``device="cpu"``; without a
 card and without that request they raise rather than run on the CPU.
+
+Over several ranks (`mesh`), ``solve_fluxes_sharded`` and
+``solve_intensity_sharded`` solve this rank's shard with no collective,
+and ``global_flux_stats`` reduces a diagnostic over mesh axes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -20,9 +25,32 @@ import torch
 from ..models.disort import eval as ev
 from ..models.disort import nt
 from ..models.disort.batch_solve import solve_batched, solve_batched_probes
+from ..models.disort.solve import solve
 from ..models.disort.types import DisortConfig, DisortProblem
 from ..ops._build import has_tangent
 from ..ops.legendre import normalized_assoc_legendre_host
+from .mesh import BATCH_AXIS
+
+# The production batched solve; `solve_vmapped`, the single-column `solve`
+# row by row, is the independent cross-check of it.
+solve_batch = solve_batched
+
+
+def _tensor_fields(x):
+    return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)}
+
+
+def solve_vmapped(problem: DisortProblem):
+    """`solve` on each row of a batched problem, the solutions stacked into
+    a batched ``DisortSolution`` (with ``G`` and ``GC``, as the single-column
+    solve makes them).  The counterpart of the JAX package's
+    ``jax.vmap(solve)``: the per-column cross-check of `solve_batch`."""
+    fields = {k: v for k, v in _tensor_fields(problem).items() if k != "lam_mu0"}
+    sols = [solve(dataclasses.replace(problem, lam_mu0=None, **{k: v[i] for k, v in fields.items()}))
+            for i in range(problem.tau_arr.shape[0])]
+    return dataclasses.replace(sols[0], **{k: torch.stack([getattr(s, k) for s in sols])
+                                           for k in _tensor_fields(sols[0])})
 
 
 def _device(device) -> torch.device:
@@ -203,3 +231,68 @@ def solve_actinic(problem: DisortProblem, tau_eval):
     """Batched solve + diffuse actinic fluxes at ``tau_eval`` (B, Ntau)."""
     _device(problem.tau_arr.device)
     return actinic_at(solve_batched(problem), tau_eval)
+
+
+def _axes(mesh, axis_name) -> tuple:
+    """``axis_name`` (one mesh axis or a tuple of them) as a tuple of names of ``mesh``."""
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    for name in names:
+        mesh.size(name)                                    # raises for an unknown axis
+    return names
+
+
+def _local_problem(problem, mesh, axis_name, *evals):
+    """This rank's shard as one flat batch: ``(leading dims, problem,
+    evaluation tensors)``, every leading dimension sharded over an axis of
+    ``axis_name`` flattened into one.  Raises ``ValueError`` unless the
+    problem and the evaluation tensors sit on the mesh's device."""
+    nlead = len(_axes(mesh, axis_name))
+    for x in (problem.tau_arr, *evals):
+        if not isinstance(x, torch.Tensor) or x.device != mesh.device:
+            where = x.device if isinstance(x, torch.Tensor) else type(x).__name__
+            raise ValueError(f"a sharded solve takes this rank's shard on {mesh.device} (`mesh.shard_batch`), "
+                             f"got {where}")
+    flat = lambda x: x.reshape((-1,) + x.shape[nlead:])
+    lead = tuple(problem.tau_arr.shape[:nlead])
+    local = dataclasses.replace(problem, **{k: flat(v) for k, v in _tensor_fields(problem).items()})
+    return lead, local, [flat(x) for x in evals]
+
+
+def solve_fluxes_sharded(problem: DisortProblem, tau_eval, mesh, axis_name=BATCH_AXIS):
+    """`solve_fluxes` on this rank's shard of a batch sharded over ``mesh``.
+
+    ``problem`` and ``tau_eval`` are this rank's rows (`mesh.shard_batch`),
+    on the mesh's device.  ``axis_name`` is one mesh axis (one leading batch
+    dimension) or a tuple of axes, e.g. ``("columns", "bands")`` for leaves
+    with two leading batch dimensions; the shard is then solved as one flat
+    batch and the fluxes take its leading shape again.  The solve issues no
+    collective (`mesh.count_collectives` reads zero): each rank returns its
+    own rows.  The counterpart of the JAX package's ``shard_map`` program.
+    """
+    lead, local, (tau,) = _local_problem(problem, mesh, axis_name, tau_eval)
+    return tuple(x.reshape(lead + x.shape[1:]) for x in solve_fluxes(local, tau))
+
+
+def solve_intensity_sharded(problem: DisortProblem, tau_eval, phi_eval, mesh, axis_name=BATCH_AXIS,
+                            nt_correct=None, probes_per_layer=False):
+    """`solve_intensity` on this rank's shard, as `solve_fluxes_sharded`
+    solves fluxes: ``u`` of this rank's rows, no collective."""
+    lead, local, (tau, phi) = _local_problem(problem, mesh, axis_name, tau_eval, phi_eval)
+    u = solve_intensity(local, tau, phi, nt_correct=nt_correct, probes_per_layer=probes_per_layer)
+    return u.reshape(lead + u.shape[1:])
+
+
+def global_flux_stats(fup, axis_name=None, mesh=None):
+    """The mean of ``fup``: over this rank's rows without ``axis_name``;
+    over the ranks of one mesh axis or a tuple of them with it, by one
+    ``all_reduce`` of (sum, count) on each axis's group (the JAX package's
+    two ``psum``s).  A mesh without a group (world 1) reduces nothing."""
+    total = torch.stack([fup.sum(), torch.full((), fup.numel(), dtype=fup.dtype, device=fup.device)])
+    if axis_name is not None:
+        if mesh is None:
+            raise ValueError("global_flux_stats: a reduction over a mesh axis needs the mesh")
+        for name in _axes(mesh, axis_name):
+            group = mesh.group(name)
+            if group is not None:
+                torch.distributed.all_reduce(total, group=group)
+    return total[0] / total[1]

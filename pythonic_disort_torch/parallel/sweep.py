@@ -4,7 +4,8 @@ Counterpart of ``pythonic_disort_tpu/parallel/sweep.py``.  A sweep over a
 large (columns x bands) batch is split into chunks; each chunk's fluxes
 are written to ``<out_dir>/chunk_<i>.npz`` and a manifest records which
 chunks are done.  A restart skips them.  The files are the JAX driver's,
-so either package's driver can resume the other's directory.
+so either package's driver can resume the other's directory, with or
+without a mesh.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .batch import solve_fluxes
+from .batch import solve_fluxes, solve_fluxes_sharded
+from .mesh import shard_batch
 
 _FLUXES = ("flux_up", "flux_down_diffuse", "flux_down_direct")
 
@@ -36,21 +39,38 @@ class SweepDriver:
     stream reads it.  ``overlap=False`` synchronizes after each chunk and
     drains it at once.
 
-    ``mesh``: several devices are not ported (ROADMAP queue 1, item 9b);
-    any value other than None raises.
+    ``mesh`` (`mesh.default_mesh`, one axis): every rank of the mesh
+    constructs the driver and calls `run` with the same arguments.  Each
+    chunk's rows split evenly over the ranks (`mesh.shard_batch`), so
+    ``chunk_size`` and the last chunk must divide by the mesh's size
+    (``ValueError`` otherwise; nothing is padded).  Each rank solves its
+    rows with `batch.solve_fluxes_sharded`, double-buffered as above; the
+    drain gathers the ranks' host copies to rank 0 as objects (gloo gathers
+    no CUDA tensor), and rank 0 alone writes the files and the manifest.
+    Every rank skips the chunks that rank 0's manifest and files mark
+    done, broadcast at the start of `run`, and `run` returns on every rank
+    once the directory is complete.
     """
 
     def __init__(self, out_dir, chunk_size, mesh=None, overlap=True):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SweepDriver: a sweep over several devices (mesh) is not ported: ROADMAP queue 1, item 9b")
         self.out_dir = out_dir
         self.chunk_size = int(chunk_size)
+        self.mesh = mesh
         self.overlap = overlap
         self._side = {}                    # device -> the side stream of its copies
-        os.makedirs(out_dir, exist_ok=True)
+        self._group = None                 # the mesh axis's group; None: one rank, no collective
+        if mesh is not None:
+            if len(mesh.axis_names) != 1:
+                raise ValueError(f"SweepDriver splits chunks over a 1-D mesh, got axes {mesh.axis_names}")
+            if self.chunk_size % mesh.world:
+                raise ValueError(f"SweepDriver: chunk_size {self.chunk_size} does not divide by the "
+                                 f"{mesh.world} ranks of the mesh")
+            self._group = mesh.groups[0]
+        self._writer = self._group is None or dist.get_rank(self._group) == 0
+        if self._writer:
+            os.makedirs(out_dir, exist_ok=True)
         self.manifest_path = os.path.join(out_dir, "manifest.json")
-        self.manifest = self._load_manifest()
+        self.manifest = self._load_manifest() if self._writer else None
 
     def _load_manifest(self):
         if os.path.exists(self.manifest_path):
@@ -97,6 +117,10 @@ class SweepDriver:
         """
         times = {}
         n_chunks = (n_total + self.chunk_size - 1) // self.chunk_size
+        if self.mesh is not None and (n_total - (n_chunks - 1) * self.chunk_size) % self.mesh.world:
+            raise ValueError(f"SweepDriver: the last chunk of {n_total} solves does not divide by the "
+                             f"{self.mesh.world} ranks of the mesh")
+        finished = self._finished(n_chunks)
         # (ci, start, stop, fluxes, host, copied, t0): the tuple holds the
         # chunk's flux tensors until its drain has waited on the copy
         pending = None
@@ -105,22 +129,32 @@ class SweepDriver:
             ci, start, stop, _, host, copied, t0 = p
             if copied is not None:
                 copied.synchronize()
-            np.savez(os.path.join(self.out_dir, f"chunk_{ci}.npz"),
-                     **{k: h.numpy() for k, h in zip(_FLUXES, host)}, start=start, stop=stop)
-            self.manifest["chunks"][str(ci)] = "done"
-            self._save_manifest()
+            host = [h.numpy() for h in host]
+            if self._group is not None:
+                shards = [None] * dist.get_world_size(self._group) if self._writer else None
+                dist.gather_object(host, shards, group_dst=0, group=self._group)
+                if self._writer:
+                    host = [np.concatenate(x, axis=0) for x in zip(*shards)]
+            if self._writer:
+                np.savez(os.path.join(self.out_dir, f"chunk_{ci}.npz"),
+                         **dict(zip(_FLUXES, host)), start=start, stop=stop)
+                self.manifest["chunks"][str(ci)] = "done"
+                self._save_manifest()
             times[ci] = time.perf_counter() - t0
 
         for ci in range(n_chunks):
-            path = os.path.join(self.out_dir, f"chunk_{ci}.npz")
-            if self.manifest["chunks"].get(str(ci)) == "done" and os.path.exists(path):
+            if ci in finished:
                 continue
             start = ci * self.chunk_size
             stop = min(start + self.chunk_size, n_total)
             problem = problem_for_chunk(start, stop)
             tau_eval = tau_eval_for_chunk(start, stop)
+            if self.mesh is not None:
+                problem = shard_batch(problem, self.mesh)
+                tau_eval = shard_batch(tau_eval, self.mesh)
             t0 = time.perf_counter()
-            outs = solve_fluxes(problem, tau_eval)
+            outs = (solve_fluxes(problem, tau_eval) if self.mesh is None
+                    else solve_fluxes_sharded(problem, tau_eval, self.mesh))
             if self.overlap:
                 staged = (ci, start, stop, outs, *self._stage(outs), t0)
                 if pending is not None:
@@ -132,10 +166,27 @@ class SweepDriver:
                 drain((ci, start, stop, outs, tuple(x.cpu() for x in outs), None, t0))
         if pending is not None:
             drain(pending)
+        if self._group is not None:
+            dist.barrier(group=self._group)        # rank 0 has written the last chunk
         return times
 
+    def _finished(self, n_chunks) -> set:
+        """The chunks rank 0's manifest marks done and whose files exist,
+        broadcast to every rank of the mesh."""
+        finished = [None]
+        if self._writer:
+            finished[0] = {ci for ci in range(n_chunks)
+                           if self.manifest["chunks"].get(str(ci)) == "done"
+                           and os.path.exists(os.path.join(self.out_dir, f"chunk_{ci}.npz"))}
+        if self._group is not None:
+            dist.broadcast_object_list(finished, group_src=0, group=self._group)
+        return finished[0]
+
     def gather(self):
-        """Concatenate all finished chunks in index order."""
+        """Concatenate all finished chunks in index order (with a mesh, on
+        any rank that sees rank 0's directory)."""
+        if not self._writer:
+            self.manifest = self._load_manifest()
         outs = {k: [] for k in _FLUXES}
         for ci in sorted(int(k) for k, v in self.manifest["chunks"].items() if v == "done"):
             with np.load(os.path.join(self.out_dir, f"chunk_{ci}.npz")) as z:

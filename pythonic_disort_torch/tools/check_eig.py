@@ -84,9 +84,9 @@ _SASS_INSN = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+\S")
 
 
 def plain_K(At, Bt):
-    """K of the plain stage in float64 on the CPU (cuSOLVER's batched eigh
-    refuses the main path's lane count), on At's device."""
-    return eig_stage_lanes_plain(At.double().cpu(), Bt.double().cpu())[0].to(At.device)
+    """K of the plain stage (Cholesky and the plain two-sided Jacobi) in
+    float64, on At's device."""
+    return eig_stage_lanes_plain(At.double(), Bt.double())[0]
 
 
 def eig_errors(At, Bt, outs, Kp):

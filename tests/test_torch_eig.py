@@ -5,8 +5,8 @@ D+/D- (Henyey-Greenstein-like Legendre moments, single-scattering albedo
 below 1) for one hemisphere of a double-Gauss rule.  They go through
 ``pythonic_disort_tpu.ops.eig.disort_eigh_lanes`` (on the CPU its plain
 jnp Jacobi path) and ``pythonic_disort_torch.ops.eig.disort_eigh_lanes``
-(on CPU tensors the plain torch.linalg stage).  The two order their eigen
-columns differently, so every comparison is order-free.
+(on CPU tensors the plain stage, Cholesky and the plain two-sided
+Jacobi).  No comparison depends on the order of the eigen columns.
 """
 
 import numpy as np
@@ -21,6 +21,7 @@ from pythonic_disort_tpu.ops.eig import disort_eigh_lanes as jax_eigh_lanes
 from pythonic_disort_torch.ops import cuda_eig
 from pythonic_disort_torch.ops.eig import disort_eigh, disort_eigh_lanes
 from pythonic_disort_torch.ops.quadrature import double_gauss
+from test_torch_eig_f32 import lapack_stage
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -73,7 +74,7 @@ def test_eig_stage_matches_jax(n, B):
         jnp.asarray(Dp), jnp.asarray(Dm), jnp.asarray(mu), jnp.asarray(w))]
     t = lambda x: torch.as_tensor(x, dtype=torch.float64)
     out = [x.numpy() for x in disort_eigh_lanes(t(Dp), t(Dm), t(mu), t(w))]
-    # f64 Jacobi (9 sweeps) and LAPACK's eigh agree on K to roundoff
+    # the two f64 Jacobi stages (9 sweeps) agree on K to roundoff
     # grown by the conditioning of -Bt (its 1/mu diagonal spans up to
     # ~200x at n = 16): 1e-10 relative leaves a wide margin.
     k_ref = np.sort(ref[0], axis=0)
@@ -287,14 +288,14 @@ def test_kernel_sweep_model_matches_jax_onesided(n):
 
 @pytest.mark.parametrize("n", [2, 4, 16, 24, 32])
 def test_kernel_stage_model_matches_lapack(n):
-    """The kernel's whole stage (model) against the plain stage (LAPACK
-    eigh) in float64, 9 sweeps, with the order-free readings and float64
-    limits of `tools/check_eig.py`."""
+    """The kernel's whole stage (model) against the stage on LAPACK's eigh
+    (`test_torch_eig_f32.lapack_stage`) in float64, 9 sweeps, with the
+    order-free readings and float64 limits of `tools/check_eig.py`."""
     from pythonic_disort_torch.tools.check_eig import eig_errors, beyond_limits
 
     At, Bt = _stage_operands(n, 12, seed=60 + n)
     outs, _ = _stage_model(At, Bt, cuda_eig.jacobi_sweeps(torch.float64))
     t = lambda x: torch.as_tensor(x, dtype=torch.float64)
-    Kp = cuda_eig.eig_stage_lanes_plain(t(At), t(Bt))[0]
+    Kp = lapack_stage(t(At), t(Bt))[0]
     e = eig_errors(t(At), t(Bt), tuple(t(x) for x in outs), Kp)
     assert not beyond_limits(e, torch.float64), e

@@ -7,10 +7,10 @@ polynomial coefficients, delta-M with layer-varying omega and f, BDRF,
 L = 1 and L = 4, NQuad = 8): column ``s`` of the batched JAX problem,
 made from a numpy seed, goes through both packages' ``solve``.  On CPU
 tensors the port runs the plain versions of its kernels; the JAX package
-its plain jnp paths.  The eigen columns come out in another order
-(LAPACK against Jacobi) and the boundary-value coefficients adapt, so
-the comparisons are of fields that do not depend on that order, and of
-everything the evaluators read from the solution.
+its plain jnp paths.  The eigen columns may come out in another order,
+and the boundary-value coefficients adapt to it, so the comparisons are
+of fields that do not depend on that order, and of everything the
+evaluators read from the solution.
 """
 
 import dataclasses

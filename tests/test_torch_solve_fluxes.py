@@ -50,8 +50,8 @@ def to_port(problem):
 def assert_fluxes_match(problem, tau_eval):
     ref = [np.asarray(x) for x in jax.jit(jax_solve_fluxes)(problem, jnp.asarray(tau_eval))]
     out = [x.numpy() for x in pt.solve_fluxes(to_port(problem), tau_eval)]
-    # f64 on both sides; the eigen columns come out in another order
-    # (Jacobi vs LAPACK) and the BVP coefficients adapt, so agreement is
+    # f64 on both sides; the eigen columns may come out in another order
+    # and the BVP coefficients adapt, so agreement is
     # to roundoff grown by the BVP's conditioning, well inside 1e-9.
     for lbl, a, b in zip(("fup", "fdn", "fdir"), ref, out):
         np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-12 * np.abs(a).max(), err_msg=lbl)

@@ -133,8 +133,3 @@ def test_jax_finishes_a_port_directory(tmp_path, batch):
     driver, tj = jax_run(tmp_path, batch)
     assert sorted(tj) == [2]
     assert_matches_jax(driver.gather(), batch[4])
-
-
-def test_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="9b"):
-        tpar.SweepDriver(str(tmp_path), CHUNK, mesh=object())

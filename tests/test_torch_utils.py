@@ -361,7 +361,8 @@ def test_the_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[0] == "0", out.stdout
-    assert "pythonic_disort_torch.subroutines" in modules and "pythonic_disort_torch.ops.planck" in modules
+    assert {"pythonic_disort_torch.subroutines", "pythonic_disort_torch.ops.planck", "pythonic_disort_torch.parallel.mesh",
+            "pythonic_disort_torch.tools.mesh_worker"} <= set(modules)
 
 
 def test_interpolate_dispatches_on_the_closures_signature(solved):

@@ -11,7 +11,7 @@ and block sizes 2N > 64 go to kernel 6, whose plain versions run here.
   corrections, the batched ``solve_fluxes`` and a gradient.
 - Odd N, which the JAX package refuses (its schedule asserts even n):
   ``pydisort`` against the same call with the eigen stage swapped for
-  LAPACK's ``eigh`` (``cuda_eig.eig_stage_lanes_plain``), two independent
+  LAPACK's ``eigh`` (``test_torch_eig_f32.lapack_stage``), two independent
   eigensolvers; the plain Jacobi at odd n against ``torch.linalg.eigh``.
 
 Inputs are made with numpy from a seed.
@@ -35,9 +35,10 @@ from pythonic_disort_tpu.parallel import solve_fluxes as jax_solve_fluxes
 
 import pythonic_disort_torch as pt
 from pythonic_disort_torch.models.disort import eval as ev
-from pythonic_disort_torch.ops import cuda_blocktri, cuda_eig, cuda_jacobi, eig, jacobi
+from pythonic_disort_torch.ops import cuda_blocktri, cuda_jacobi, eig, jacobi
 from pythonic_disort_torch.ops.quadrature import double_gauss
 from test_batch_solve import _problem
+from test_torch_eig_f32 import lapack_stage
 from test_torch_solve_fluxes import to_port
 
 f64 = torch.float64
@@ -148,7 +149,7 @@ def test_pydisort_odd_n_matches_lapack_route(nquad, monkeypatch):
         return [fu(tau), *fd(tau), u0(tau), u(tau, phi)]
 
     out = run()
-    monkeypatch.setattr(eig, "_eig_stage", cuda_eig.eig_stage_lanes_plain)
+    monkeypatch.setattr(eig, "_eig_stage", lapack_stage)
     ref = run()
     for lbl, a, b in zip(("flux_up", "flux_down diffuse", "flux_down direct", "u0", "u"), ref, out):
         assert np.isfinite(b).all()
