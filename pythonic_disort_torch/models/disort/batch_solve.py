@@ -38,6 +38,7 @@ from ...ops.cuda_blocktri import FUSED_BLOCK_MAX, solve_block_tridiag_lanes_cuda
 from ...ops.eig import disort_eigh_lanes
 from ...ops.legendre import normalized_assoc_legendre
 from .solve import _power_ladder, _tables, affine_transform_poly_coeffs, iso_particular_tensor, iso_poly_eval
+from ...utils.profiling import span
 from .types import DisortProblem, DisortSolution
 
 
@@ -78,265 +79,270 @@ def _solve(problem: DisortProblem, probe_tau=None):
 
     tau_arr = problem.tau_arr                                    # (S, L)
     dtype, device = tau_arr.dtype, tau_arr.device
-    S = tau_arr.shape[0]
-    omega_arr, f_arr = problem.omega_arr, problem.f_arr
-    mu0, I0, phi0 = problem.mu0, problem.I0, problem.phi0        # (S,)
-    tab = _tables(cfg.nquad, NLeg, cfg.nleg_all, NF, dtype, device)
-    mu, w = tab.mu, tab.w
-    M_inv = 1.0 / mu
+    with span("disort.solve.assemble", device):
+        S = tau_arr.shape[0]
+        omega_arr, f_arr = problem.omega_arr, problem.f_arr
+        mu0, I0, phi0 = problem.mu0, problem.I0, problem.phi0        # (S,)
+        tab = _tables(cfg.nquad, NLeg, cfg.nleg_all, NF, dtype, device)
+        mu, w = tab.mu, tab.w
+        M_inv = 1.0 / mu
 
-    zeros_s1 = torch.zeros((S, 1), dtype=dtype, device=device)
-    thickness = torch.diff(tau_arr, dim=-1, prepend=zeros_s1)
-    weighted_leg_all = tab.leg_weights[None, None, :] * problem.leg_coeffs_all
-    leg = problem.leg_coeffs_all[..., :NLeg]
+        zeros_s1 = torch.zeros((S, 1), dtype=dtype, device=device)
+        thickness = torch.diff(tau_arr, dim=-1, prepend=zeros_s1)
+        weighted_leg_all = tab.leg_weights[None, None, :] * problem.leg_coeffs_all
+        leg = problem.leg_coeffs_all[..., :NLeg]
 
-    # ---- delta-M scaling (reference pydisort.py:313-344) ----
-    if cfg.has_deltam:
-        scale_tau = 1.0 - omega_arr * f_arr
-        scaled_tau_with_0 = torch.cat(
-            [zeros_s1, torch.cumsum(scale_tau * thickness, dim=-1)], dim=-1)
-        scaled_leg = (leg - f_arr[..., None]) / (1.0 - f_arr)[..., None]
-        scaled_omega = (1.0 - f_arr) / scale_tau * omega_arr
-    else:
-        scale_tau = torch.ones((S, L), dtype=dtype, device=device)
-        scaled_tau_with_0 = torch.cat([zeros_s1, tau_arr], dim=-1)
-        scaled_leg = leg
-        scaled_omega = omega_arr
-    weighted_scaled_leg = scaled_leg * tab.leg_weights[None, None, :NLeg]
-
-    if cfg.has_iso:
+        # ---- delta-M scaling (reference pydisort.py:313-344) ----
         if cfg.has_deltam:
-            tau_tops = torch.cat([zeros_s1, tau_arr[:, :-1]], dim=-1)
-            translations = scaled_tau_with_0[:, :-1] - scale_tau * tau_tops
-            scaled_s_poly = (
-                affine_transform_poly_coeffs(problem.s_poly_coeffs, scale_tau, translations)
-                / scale_tau[..., None]
-            ) * (1.0 - omega_arr)[..., None]
+            scale_tau = 1.0 - omega_arr * f_arr
+            scaled_tau_with_0 = torch.cat(
+                [zeros_s1, torch.cumsum(scale_tau * thickness, dim=-1)], dim=-1)
+            scaled_leg = (leg - f_arr[..., None]) / (1.0 - f_arr)[..., None]
+            scaled_omega = (1.0 - f_arr) / scale_tau * omega_arr
         else:
-            scaled_s_poly = problem.s_poly_coeffs * (1.0 - omega_arr)[..., None]
+            scale_tau = torch.ones((S, L), dtype=dtype, device=device)
+            scaled_tau_with_0 = torch.cat([zeros_s1, tau_arr], dim=-1)
+            scaled_leg = leg
+            scaled_omega = omega_arr
+        weighted_scaled_leg = scaled_leg * tab.leg_weights[None, None, :NLeg]
 
-    # ---- source rescaling for conditioning (reference pydisort.py:348-373) ----
-    b_pos, b_neg = problem.b_pos, problem.b_neg                  # (S, N, NF)
-    candidates = [I0, b_pos.amax(dim=(1, 2)), b_neg.amax(dim=(1, 2))]
-    if cfg.has_iso:
-        taup = _power_ladder(scaled_tau_with_0[:, -1], Ns)      # (S, Ns), 0^0 = 1
-        candidates += [scaled_s_poly[:, 0, 0], (scaled_s_poly[:, -1, :] * taup).sum(dim=-1)]
-    rescale = torch.stack(candidates, dim=-1).amax(dim=-1)
-    rescale = torch.where(rescale > 0, rescale, torch.ones_like(rescale))
-    I0 = I0 / rescale
-    b_pos = b_pos / rescale[:, None, None]
-    b_neg = b_neg / rescale[:, None, None]
-    I0_div_4pi = I0 / (4.0 * math.pi)
+        if cfg.has_iso:
+            if cfg.has_deltam:
+                tau_tops = torch.cat([zeros_s1, tau_arr[:, :-1]], dim=-1)
+                translations = scaled_tau_with_0[:, :-1] - scale_tau * tau_tops
+                scaled_s_poly = (
+                    affine_transform_poly_coeffs(problem.s_poly_coeffs, scale_tau, translations)
+                    / scale_tau[..., None]
+                ) * (1.0 - omega_arr)[..., None]
+            else:
+                scaled_s_poly = problem.s_poly_coeffs * (1.0 - omega_arr)[..., None]
 
-    # ---- phase-function kernels, built directly in lanes layout ----
-    lam_mu, mode_mask, parity = tab.lam_mu, tab.mode_mask, tab.parity
+        # ---- source rescaling for conditioning (reference pydisort.py:348-373) ----
+        b_pos, b_neg = problem.b_pos, problem.b_neg                  # (S, N, NF)
+        candidates = [I0, b_pos.amax(dim=(1, 2)), b_neg.amax(dim=(1, 2))]
+        if cfg.has_iso:
+            taup = _power_ladder(scaled_tau_with_0[:, -1], Ns)      # (S, Ns), 0^0 = 1
+            candidates += [scaled_s_poly[:, 0, 0], (scaled_s_poly[:, -1, :] * taup).sum(dim=-1)]
+        rescale = torch.stack(candidates, dim=-1).amax(dim=-1)
+        rescale = torch.where(rescale > 0, rescale, torch.ones_like(rescale))
+        I0 = I0 / rescale
+        b_pos = b_pos / rescale[:, None, None]
+        b_neg = b_neg / rescale[:, None, None]
+        I0_div_4pi = I0 / (4.0 * math.pi)
 
-    # base[s, l, c] = (omega_l / 2)(2c+1) g_{l,c}; per-mode masked below
-    base_c = (scaled_omega[..., None] / 2.0) * weighted_scaled_leg
-    LS = L * S
-    base_lanes = base_c.permute(2, 1, 0).reshape(NLeg, LS)      # (NLeg, L*S)
-    Dp_parts, Dm_parts = [], []
-    for m in range(NF):
-        lamlam = (lam_mu[m][:, :, None] * lam_mu[m][:, None, :]).reshape(NLeg, N * N)
-        cm = mode_mask[m][:, None] * base_lanes
-        Dp_parts.append((lamlam.T @ cm).reshape(N, N, LS))
-        Dm_parts.append(((lamlam * parity[m][:, None]).T @ cm).reshape(N, N, LS))
-    Dp_l = torch.stack(Dp_parts, dim=2).reshape(N, N, NF * LS)  # q = (m, l, s)
-    Dm_l = torch.stack(Dm_parts, dim=2).reshape(N, N, NF * LS)
+        # ---- phase-function kernels, built directly in lanes layout ----
+        lam_mu, mode_mask, parity = tab.lam_mu, tab.mode_mask, tab.parity
+
+        # base[s, l, c] = (omega_l / 2)(2c+1) g_{l,c}; per-mode masked below
+        base_c = (scaled_omega[..., None] / 2.0) * weighted_scaled_leg
+        LS = L * S
+        base_lanes = base_c.permute(2, 1, 0).reshape(NLeg, LS)      # (NLeg, L*S)
+        Dp_parts, Dm_parts = [], []
+        for m in range(NF):
+            lamlam = (lam_mu[m][:, :, None] * lam_mu[m][:, None, :]).reshape(NLeg, N * N)
+            cm = mode_mask[m][:, None] * base_lanes
+            Dp_parts.append((lamlam.T @ cm).reshape(N, N, LS))
+            Dm_parts.append(((lamlam * parity[m][:, None]).T @ cm).reshape(N, N, LS))
+        Dp_l = torch.stack(Dp_parts, dim=2).reshape(N, N, NF * LS)  # q = (m, l, s)
+        Dm_l = torch.stack(Dm_parts, dim=2).reshape(N, N, NF * LS)
 
     # ---- batched eigen stage, lanes in / lanes out ----
-    K_pos, X, Y, P, Q = disort_eigh_lanes(Dp_l, Dm_l, mu, w)   # (N[, N], Q)
-    a_blk = 0.5 * (X + Y)
-    b_blk = 0.5 * (X - Y)
-    G_l = torch.cat(
-        [torch.cat([a_blk, b_blk], dim=1), torch.cat([b_blk, a_blk], dim=1)], dim=0)
-    K_full = torch.cat([-K_pos, K_pos], dim=0)                   # (2N, Q)
+    with span("disort.solve.eig", device):
+        K_pos, X, Y, P, Q = disort_eigh_lanes(Dp_l, Dm_l, mu, w)   # (N[, N], Q)
+    with span("disort.solve.operands", device):
+        a_blk = 0.5 * (X + Y)
+        b_blk = 0.5 * (X - Y)
+        G_l = torch.cat(
+            [torch.cat([a_blk, b_blk], dim=1), torch.cat([b_blk, a_blk], dim=1)], dim=0)
+        K_full = torch.cat([-K_pos, K_pos], dim=0)                   # (2N, Q)
 
-    def per_mode(x_sl):
-        """(S, L) per-solve quantity -> (Q,) lanes (broadcast over modes)."""
-        return x_sl.T[None].expand(NF, L, S).reshape(NF * LS)
+        def per_mode(x_sl):
+            """(S, L) per-solve quantity -> (Q,) lanes (broadcast over modes)."""
+            return x_sl.T[None].expand(NF, L, S).reshape(NF * LS)
 
-    # ---- beam particular solution (reference _solve...py:209-231) ----
-    if cfg.has_beam:
-        if problem.lam_mu0 is not None:
-            lam_m0 = problem.lam_mu0.permute(1, 2, 0)           # (NF, NLeg, S), tabulated on the host
+        # ---- beam particular solution (reference _solve...py:209-231) ----
+        if cfg.has_beam:
+            if problem.lam_mu0 is not None:
+                lam_m0 = problem.lam_mu0.permute(1, 2, 0)           # (NF, NLeg, S), tabulated on the host
+            else:
+                # a mu0 that takes a derivative: the table from it, on the device
+                lam_m0 = normalized_assoc_legendre(NF, NLeg, -mu0)  # (NF, NLeg, S)
+            xf_parts_p, xf_parts_n = [], []
+            for m in range(NF):
+                delta_m0 = 1.0 if m == 0 else 2.0
+                fac = (2.0 * delta_m0) * (mode_mask[m][:, None] * base_lanes).reshape(
+                    NLeg, L, S) * (I0_div_4pi[None, None, :] * lam_m0[m][:, None, :])
+                fac = fac.reshape(NLeg, LS)
+                xf_parts_p.append(lam_mu[m].T @ fac)                 # (N, LS)
+                xf_parts_n.append(lam_mu[m].T @ (parity[m][:, None] * fac))
+            Xp = torch.stack(xf_parts_p, dim=1).reshape(N, NF * LS)
+            Xn = torch.stack(xf_parts_n, dim=1).reshape(N, NF * LS)
+            xp, xn = M_inv[:, None] * Xp, -M_inv[:, None] * Xn
+            Pp, Pn = _mat_lanes(P, xp), _mat_lanes(P, xn)
+            Qp, Qn = _mat_lanes(Q, xp), _mat_lanes(Q, xn)
+            y_top = 0.5 * (Pp + Qp + Pn - Qn)
+            y_bot = 0.5 * (Pp - Qp + Pn + Qn)
+            mu0_q = per_mode(mu0[:, None].expand(S, L))
+            ycat = torch.cat([y_top, y_bot], dim=0) / (1.0 / mu0_q + K_full)
+            zt, zb = ycat[:N], ycat[N:]
+            B_l = torch.cat([_mat_lanes(a_blk, zt) + _mat_lanes(b_blk, zb),
+                             _mat_lanes(b_blk, zt) + _mat_lanes(a_blk, zb)], dim=0)
         else:
-            # a mu0 that takes a derivative: the table from it, on the device
-            lam_m0 = normalized_assoc_legendre(NF, NLeg, -mu0)  # (NF, NLeg, S)
-        xf_parts_p, xf_parts_n = [], []
-        for m in range(NF):
-            delta_m0 = 1.0 if m == 0 else 2.0
-            fac = (2.0 * delta_m0) * (mode_mask[m][:, None] * base_lanes).reshape(
-                NLeg, L, S) * (I0_div_4pi[None, None, :] * lam_m0[m][:, None, :])
-            fac = fac.reshape(NLeg, LS)
-            xf_parts_p.append(lam_mu[m].T @ fac)                 # (N, LS)
-            xf_parts_n.append(lam_mu[m].T @ (parity[m][:, None] * fac))
-        Xp = torch.stack(xf_parts_p, dim=1).reshape(N, NF * LS)
-        Xn = torch.stack(xf_parts_n, dim=1).reshape(N, NF * LS)
-        xp, xn = M_inv[:, None] * Xp, -M_inv[:, None] * Xn
-        Pp, Pn = _mat_lanes(P, xp), _mat_lanes(P, xn)
-        Qp, Qn = _mat_lanes(Q, xp), _mat_lanes(Q, xn)
-        y_top = 0.5 * (Pp + Qp + Pn - Qn)
-        y_bot = 0.5 * (Pp - Qp + Pn + Qn)
-        mu0_q = per_mode(mu0[:, None].expand(S, L))
-        ycat = torch.cat([y_top, y_bot], dim=0) / (1.0 / mu0_q + K_full)
-        zt, zb = ycat[:N], ycat[N:]
-        B_l = torch.cat([_mat_lanes(a_blk, zt) + _mat_lanes(b_blk, zb),
-                         _mat_lanes(b_blk, zt) + _mat_lanes(a_blk, zb)], dim=0)
-    else:
-        B_l = torch.zeros((2 * N, NF * LS), dtype=dtype, device=device)
+            B_l = torch.zeros((2 * N, NF * LS), dtype=dtype, device=device)
 
-    # ---- isotropic-source particular tensor (mode 0, its LS lanes first) ----
-    if cfg.has_iso:
-        QM = _mat_lanes(Q[..., :LS], M_inv[:, None].expand(N, LS))
-        G_inv_mu_inv = torch.cat([QM, -QM], dim=0).T              # (LS, 2N)
-        s_desc = (scaled_s_poly / rescale[:, None, None]).flip(-1).transpose(0, 1).reshape(LS, Ns)
-        mathscr_b = iso_particular_tensor(
-            G_l[..., :LS].permute(2, 0, 1), K_full[:, :LS].T, G_inv_mu_inv, s_desc)
-        mathscr_b = mathscr_b.reshape(L, S, 2 * N, Ns).transpose(0, 1)   # (S, L, 2N, Ns)
-    else:
-        mathscr_b = torch.zeros((S, L, 2 * N, 1), dtype=dtype, device=device)
+        # ---- isotropic-source particular tensor (mode 0, its LS lanes first) ----
+        if cfg.has_iso:
+            QM = _mat_lanes(Q[..., :LS], M_inv[:, None].expand(N, LS))
+            G_inv_mu_inv = torch.cat([QM, -QM], dim=0).T              # (LS, 2N)
+            s_desc = (scaled_s_poly / rescale[:, None, None]).flip(-1).transpose(0, 1).reshape(LS, Ns)
+            mathscr_b = iso_particular_tensor(
+                G_l[..., :LS].permute(2, 0, 1), K_full[:, :LS].T, G_inv_mu_inv, s_desc)
+            mathscr_b = mathscr_b.reshape(L, S, 2 * N, Ns).transpose(0, 1)   # (S, L, 2N, Ns)
+        else:
+            mathscr_b = torch.zeros((S, L, 2 * N, 1), dtype=dtype, device=device)
 
-    # ---- BDRF operators (reference _solve_for_coeffs.py:118-135) ----
-    mu_w = mu * w
-    NFS = NF * S
-    R_pad = torch.zeros((S, NF, N, N), dtype=dtype, device=device)
-    X_bdrf = torch.zeros((S, NF, N), dtype=dtype, device=device)
-    has_bdrf = NB > 0
-    if has_bdrf:
-        nb = min(NB, NF)
-        delta = tab.bdrf_delta[None, :nb, None, None]
-        R_pad[:, :nb] = delta * problem.bdrf_modes[:, :nb] * mu_w[None, None, None, :]
-        if cfg.has_beam:
-            X_bdrf[:, :nb] = (4.0 * mu0 * I0_div_4pi)[:, None, None] * problem.bdrf_modes_mu0[:, :nb]
-    R_l = R_pad.permute(2, 3, 1, 0).reshape(N, N, NFS)
-    X_bdrf_l = X_bdrf.permute(2, 1, 0).reshape(N, NFS)
-
-    # ---- BVP operands, L-major lanes (L, rows, cols, NF*S) ----
-    Gt = G_l.reshape(2 * N, 2 * N, NF, L, S).movedim(3, 0).reshape(L, 2 * N, 2 * N, NFS)
-    sthick = scaled_tau_with_0[:, 1:] - scaled_tau_with_0[:, :-1]   # (S, L)
-    decay_q = torch.exp(-K_pos * per_mode(sthick)[None, :])         # (N, Q)
-    decay_t = decay_q.reshape(N, NF, L, S).permute(2, 0, 1, 3).reshape(L, N, NFS)
-
-    # Bottom BC rows: (G_pn - R G_nn) decay | (G_pp - R G_np)
-    GL = Gt[-1]
-    if has_bdrf:
-        bot_left = (GL[:N, :N] - torch.einsum("ijq,jkq->ikq", R_l, GL[N:, :N])) * decay_t[-1][None]
-        bot_right = GL[:N, N:] - torch.einsum("ijq,jkq->ikq", R_l, GL[N:, N:])
-    else:
-        bot_left = GL[:N, :N] * decay_t[-1][None]
-        bot_right = GL[:N, N:]
-    Bt_rows = torch.cat([bot_left, bot_right], dim=1)            # (N, 2N, NFS)
-
-    # ---- RHS (reference _solve_for_coeffs.py:139-256) ----
-    B5 = B_l.reshape(2 * N, NF, L, S)
-    rhs_top = b_neg.permute(1, 2, 0)                             # (N, NF, S)
-    rhs_bot = b_pos.permute(1, 2, 0)
-    if cfg.has_beam:
-        beam_decay_bot = torch.exp(-scaled_tau_with_0[:, -1] / mu0)     # (S,)
-        rhs_top = rhs_top - B5[N:, :, 0, :]
-        RB = (torch.einsum("ijq,jq->iq", R_l, B5[N:, :, -1, :].reshape(N, NFS)).reshape(N, NF, S)
-              if has_bdrf else 0.0)
-        rhs_bot = rhs_bot + (X_bdrf_l.reshape(N, NF, S) + RB - B5[:N, :, -1, :]) \
-            * beam_decay_bot[None, None, :]
-    if cfg.has_iso:
-        # mode 0 only; new tensors, not writes into views of b_neg/b_pos
-        v_top = iso_poly_eval(mathscr_b[:, 0], zeros_s1[:, 0])                 # (S, 2N)
-        v_bot = iso_poly_eval(mathscr_b[:, -1], scaled_tau_with_0[:, -1])
-        top0 = -v_top[:, N:]
-        bot0 = -v_bot[:, :N]
+        # ---- BDRF operators (reference _solve_for_coeffs.py:118-135) ----
+        mu_w = mu * w
+        NFS = NF * S
+        R_pad = torch.zeros((S, NF, N, N), dtype=dtype, device=device)
+        X_bdrf = torch.zeros((S, NF, N), dtype=dtype, device=device)
+        has_bdrf = NB > 0
         if has_bdrf:
-            bot0 = bot0 + torch.einsum("sij,sj->si", R_pad[:, 0], v_bot[:, N:])
-        rhs_top = torch.cat([rhs_top[:, :1] + top0.T[:, None], rhs_top[:, 1:]], dim=1)
-        rhs_bot = torch.cat([rhs_bot[:, :1] + bot0.T[:, None], rhs_bot[:, 1:]], dim=1)
-    if L > 1:
-        cont_rhs = torch.zeros((L - 1, 2 * N, NF, S), dtype=dtype, device=device)
+            nb = min(NB, NF)
+            delta = tab.bdrf_delta[None, :nb, None, None]
+            R_pad[:, :nb] = delta * problem.bdrf_modes[:, :nb] * mu_w[None, None, None, :]
+            if cfg.has_beam:
+                X_bdrf[:, :nb] = (4.0 * mu0 * I0_div_4pi)[:, None, None] * problem.bdrf_modes_mu0[:, :nb]
+        R_l = R_pad.permute(2, 3, 1, 0).reshape(N, N, NFS)
+        X_bdrf_l = X_bdrf.permute(2, 1, 0).reshape(N, NFS)
+
+        # ---- BVP operands, L-major lanes (L, rows, cols, NF*S) ----
+        Gt = G_l.reshape(2 * N, 2 * N, NF, L, S).movedim(3, 0).reshape(L, 2 * N, 2 * N, NFS)
+        sthick = scaled_tau_with_0[:, 1:] - scaled_tau_with_0[:, :-1]   # (S, L)
+        decay_q = torch.exp(-K_pos * per_mode(sthick)[None, :])         # (N, Q)
+        decay_t = decay_q.reshape(N, NF, L, S).permute(2, 0, 1, 3).reshape(L, N, NFS)
+
+        # Bottom BC rows: (G_pn - R G_nn) decay | (G_pp - R G_np)
+        GL = Gt[-1]
+        if has_bdrf:
+            bot_left = (GL[:N, :N] - torch.einsum("ijq,jkq->ikq", R_l, GL[N:, :N])) * decay_t[-1][None]
+            bot_right = GL[:N, N:] - torch.einsum("ijq,jkq->ikq", R_l, GL[N:, N:])
+        else:
+            bot_left = GL[:N, :N] * decay_t[-1][None]
+            bot_right = GL[:N, N:]
+        Bt_rows = torch.cat([bot_left, bot_right], dim=1)            # (N, 2N, NFS)
+
+        # ---- RHS (reference _solve_for_coeffs.py:139-256) ----
+        B5 = B_l.reshape(2 * N, NF, L, S)
+        rhs_top = b_neg.permute(1, 2, 0)                             # (N, NF, S)
+        rhs_bot = b_pos.permute(1, 2, 0)
         if cfg.has_beam:
-            bdecay = torch.exp(-scaled_tau_with_0[:, 1:-1] / mu0[:, None])   # (S, L-1)
-            diffB = (B5[:, :, 1:, :] - B5[:, :, :-1, :]).permute(2, 0, 1, 3)
-            cont_rhs = cont_rhs + diffB * bdecay.T[:, None, None, :]
+            beam_decay_bot = torch.exp(-scaled_tau_with_0[:, -1] / mu0)     # (S,)
+            rhs_top = rhs_top - B5[N:, :, 0, :]
+            RB = (torch.einsum("ijq,jq->iq", R_l, B5[N:, :, -1, :].reshape(N, NFS)).reshape(N, NF, S)
+                  if has_bdrf else 0.0)
+            rhs_bot = rhs_bot + (X_bdrf_l.reshape(N, NF, S) + RB - B5[:N, :, -1, :]) \
+                * beam_decay_bot[None, None, :]
         if cfg.has_iso:
-            tb = scaled_tau_with_0[:, 1:-1]                                  # (S, L-1)
-            jump = iso_poly_eval(mathscr_b[:, 1:], tb) - iso_poly_eval(mathscr_b[:, :-1], tb)
-            cont_rhs = torch.cat([cont_rhs[:, :, :1] + jump.permute(1, 2, 0)[:, :, None],
-                                  cont_rhs[:, :, 1:]], dim=2)
-        rhs_t = torch.cat(
-            [torch.cat([rhs_top[None], cont_rhs[:, N:]], dim=0),
-             torch.cat([cont_rhs[:, :N], rhs_bot[None]], dim=0)], dim=1,
-        ).reshape(L, 2 * N, NFS)
-    else:
-        rhs_t = torch.cat([rhs_top, rhs_bot], dim=0).reshape(1, 2 * N, NFS)
+            # mode 0 only; new tensors, not writes into views of b_neg/b_pos
+            v_top = iso_poly_eval(mathscr_b[:, 0], zeros_s1[:, 0])                 # (S, 2N)
+            v_bot = iso_poly_eval(mathscr_b[:, -1], scaled_tau_with_0[:, -1])
+            top0 = -v_top[:, N:]
+            bot0 = -v_bot[:, :N]
+            if has_bdrf:
+                bot0 = bot0 + torch.einsum("sij,sj->si", R_pad[:, 0], v_bot[:, N:])
+            rhs_top = torch.cat([rhs_top[:, :1] + top0.T[:, None], rhs_top[:, 1:]], dim=1)
+            rhs_bot = torch.cat([rhs_bot[:, :1] + bot0.T[:, None], rhs_bot[:, 1:]], dim=1)
+        if L > 1:
+            cont_rhs = torch.zeros((L - 1, 2 * N, NF, S), dtype=dtype, device=device)
+            if cfg.has_beam:
+                bdecay = torch.exp(-scaled_tau_with_0[:, 1:-1] / mu0[:, None])   # (S, L-1)
+                diffB = (B5[:, :, 1:, :] - B5[:, :, :-1, :]).permute(2, 0, 1, 3)
+                cont_rhs = cont_rhs + diffB * bdecay.T[:, None, None, :]
+            if cfg.has_iso:
+                tb = scaled_tau_with_0[:, 1:-1]                                  # (S, L-1)
+                jump = iso_poly_eval(mathscr_b[:, 1:], tb) - iso_poly_eval(mathscr_b[:, :-1], tb)
+                cont_rhs = torch.cat([cont_rhs[:, :, :1] + jump.permute(1, 2, 0)[:, :, None],
+                                      cont_rhs[:, :, 1:]], dim=2)
+            rhs_t = torch.cat(
+                [torch.cat([rhs_top[None], cont_rhs[:, N:]], dim=0),
+                 torch.cat([cont_rhs[:, :N], rhs_bot[None]], dim=0)], dim=1,
+            ).reshape(L, 2 * N, NFS)
+        else:
+            rhs_t = torch.cat([rhs_top, rhs_bot], dim=0).reshape(1, 2 * N, NFS)
 
-    if 2 * N <= FUSED_BLOCK_MAX:
-        C_t = solve_bvp_fused(Gt.contiguous(), decay_t.contiguous(),
-                              Bt_rows.contiguous(), rhs_t.contiguous())   # (L, 2N, NFS)
-    else:
-        C_t = solve_block_tridiag_lanes_cuda(
-            *assemble_bvp_blocks(Gt, decay_t, Bt_rows), rhs_t.contiguous())
+    with span("disort.solve.bvp", device):
+        if 2 * N <= FUSED_BLOCK_MAX:
+            C_t = solve_bvp_fused(Gt.contiguous(), decay_t.contiguous(),
+                                  Bt_rows.contiguous(), rhs_t.contiguous())   # (L, 2N, NFS)
+        else:
+            C_t = solve_block_tridiag_lanes_cuda(
+                *assemble_bvp_blocks(Gt, decay_t, Bt_rows), rhs_t.contiguous())
 
-    # ---- intensity modes at one probe per layer, contracted in lanes ----
-    # um[t, i, (m, s)] = sum_j G[t, i, j] C[t, j] exp(K_j dt) (+ beam, iso):
-    # probe t lies in layer t, so the evaluators' layer gather is the
-    # identity and the contraction reads Gt and C_t in place.
-    um = None
-    if probe_tau is not None:
-        top_b = scaled_tau_with_0[:, :-1]                        # (S, L)
-        bot_b = scaled_tau_with_0[:, 1:]
-        st_b = bot_b - (tau_arr - probe_tau) * scale_tau if cfg.has_deltam else probe_tau
-        Kr = K_full.reshape(2 * N, NF, L, S)
-        # exponents <= 0: K[:N] < 0 anchored at the layer top, K[N:] > 0 at the bottom
-        expo_b = torch.exp(torch.cat([Kr[:N] * (st_b - top_b).T[None, None],
-                                      Kr[N:] * (st_b - bot_b).T[None, None]], dim=0))
-        expo_t = expo_b.permute(2, 0, 1, 3).reshape(L, 2 * N, NFS)
-        um5 = torch.einsum("tijq,tjq->tiq", Gt, C_t * expo_t).reshape(L, 2 * N, NF, S)
-        if cfg.has_beam:
-            bexp = torch.exp(-st_b / mu0[:, None]).T             # (L, S)
-            um5 = um5 + B5.permute(2, 0, 1, 3) * bexp[:, None, None, :]
-        if cfg.has_iso:
-            v_iso = iso_poly_eval(mathscr_b, st_b).permute(1, 2, 0)   # (L, 2N, S)
-            um5 = torch.cat([um5[:, :, :1] + v_iso[:, :, None], um5[:, :, 1:]], dim=2)
-        um = um5.permute(3, 2, 1, 0)                              # (S, NF, 2N, L)
+    with span("disort.solve.outputs", device):
+        # ---- intensity modes at one probe per layer, contracted in lanes ----
+        # um[t, i, (m, s)] = sum_j G[t, i, j] C[t, j] exp(K_j dt) (+ beam, iso):
+        # probe t lies in layer t, so the evaluators' layer gather is the
+        # identity and the contraction reads Gt and C_t in place.
+        um = None
+        if probe_tau is not None:
+            top_b = scaled_tau_with_0[:, :-1]                        # (S, L)
+            bot_b = scaled_tau_with_0[:, 1:]
+            st_b = bot_b - (tau_arr - probe_tau) * scale_tau if cfg.has_deltam else probe_tau
+            Kr = K_full.reshape(2 * N, NF, L, S)
+            # exponents <= 0: K[:N] < 0 anchored at the layer top, K[N:] > 0 at the bottom
+            expo_b = torch.exp(torch.cat([Kr[:N] * (st_b - top_b).T[None, None],
+                                          Kr[N:] * (st_b - bot_b).T[None, None]], dim=0))
+            expo_t = expo_b.permute(2, 0, 1, 3).reshape(L, 2 * N, NFS)
+            um5 = torch.einsum("tijq,tjq->tiq", Gt, C_t * expo_t).reshape(L, 2 * N, NF, S)
+            if cfg.has_beam:
+                bexp = torch.exp(-st_b / mu0[:, None]).T             # (L, S)
+                um5 = um5 + B5.permute(2, 0, 1, 3) * bexp[:, None, None, :]
+            if cfg.has_iso:
+                v_iso = iso_poly_eval(mathscr_b, st_b).permute(1, 2, 0)   # (L, 2N, S)
+                um5 = torch.cat([um5[:, :, :1] + v_iso[:, :, None], um5[:, :, 1:]], dim=2)
+            um = um5.permute(3, 2, 1, 0)                              # (S, NF, 2N, L)
 
-    # ---- flux tables: quadrature contraction folded in lanes ----
-    C0 = C_t.reshape(L, 2 * N, NF, S)[:, :, 0, :]                # (L, 2N, S)
-    G0t = Gt.reshape(L, 2 * N, 2 * N, NF, S)[..., 0, :]          # (L, 2N, 2N, S)
-    fvec_up = (torch.einsum("i,lijs->ljs", mu_w, G0t[:, :N]) * C0).permute(2, 0, 1)
-    fvec_dn = (torch.einsum("i,lijs->ljs", mu_w, G0t[:, N:]) * C0).permute(2, 0, 1)
-    fb_up = torch.einsum("i,ils->sl", mu_w, B5[:N, 0])           # (S, L)
-    fb_dn = torch.einsum("i,ils->sl", mu_w, B5[N:, 0])
+        # ---- flux tables: quadrature contraction folded in lanes ----
+        C0 = C_t.reshape(L, 2 * N, NF, S)[:, :, 0, :]                # (L, 2N, S)
+        G0t = Gt.reshape(L, 2 * N, 2 * N, NF, S)[..., 0, :]          # (L, 2N, 2N, S)
+        fvec_up = (torch.einsum("i,lijs->ljs", mu_w, G0t[:, :N]) * C0).permute(2, 0, 1)
+        fvec_dn = (torch.einsum("i,lijs->ljs", mu_w, G0t[:, N:]) * C0).permute(2, 0, 1)
+        fb_up = torch.einsum("i,ils->sl", mu_w, B5[:N, 0])           # (S, L)
+        fb_dn = torch.einsum("i,ils->sl", mu_w, B5[N:, 0])
 
-    # GC for the general intensity evaluators, stored layer-flattened
-    # (S, NF, L, 4N^2); not on the flux-only path nor with probes
-    GC = None
-    if not cfg.only_flux and probe_tau is None:
-        GC5 = Gt.reshape(L, 2 * N, 2 * N, NF, S) * C_t.reshape(L, 1, 2 * N, NF, S)
-        GC = GC5.permute(4, 3, 0, 1, 2).reshape(S, NF, L, 4 * N * N)
+        # GC for the general intensity evaluators, stored layer-flattened
+        # (S, NF, L, 4N^2); not on the flux-only path nor with probes
+        GC = None
+        if not cfg.only_flux and probe_tau is None:
+            GC5 = Gt.reshape(L, 2 * N, 2 * N, NF, S) * C_t.reshape(L, 1, 2 * N, NF, S)
+            GC = GC5.permute(4, 3, 0, 1, 2).reshape(S, NF, L, 4 * N * N)
 
-    return DisortSolution(
-        config=cfg,
-        G=None,
-        K=K_full.reshape(2 * N, NF, L, S).permute(3, 1, 2, 0),
-        GC=GC,
-        B=B5.permute(3, 1, 2, 0),                                # (S, NF, L, 2N)
-        mathscr_b=mathscr_b,
-        tau_arr=tau_arr,
-        scaled_tau_with_0=scaled_tau_with_0,
-        scale_tau=scale_tau,
-        mu_arr_pos=mu[None].expand(S, N),
-        W=w[None].expand(S, N),
-        mu0=mu0,
-        I0=I0,
-        phi0=phi0,
-        rescale_factor=rescale,
-        omega_arr=omega_arr,
-        f_arr=f_arr,
-        scaled_omega_arr=scaled_omega,
-        weighted_leg_all=weighted_leg_all,
-        weighted_scaled_leg=weighted_scaled_leg,
-        fvec_up=fvec_up,
-        fvec_dn=fvec_dn,
-        fb_up=fb_up,
-        fb_dn=fb_dn,
-        fi_up=torch.einsum("i,slik->slk", mu_w, mathscr_b[:, :, :N]),
-        fi_dn=torch.einsum("i,slik->slk", mu_w, mathscr_b[:, :, N:]),
-    ), um
+        return DisortSolution(
+            config=cfg,
+            G=None,
+            K=K_full.reshape(2 * N, NF, L, S).permute(3, 1, 2, 0),
+            GC=GC,
+            B=B5.permute(3, 1, 2, 0),                                # (S, NF, L, 2N)
+            mathscr_b=mathscr_b,
+            tau_arr=tau_arr,
+            scaled_tau_with_0=scaled_tau_with_0,
+            scale_tau=scale_tau,
+            mu_arr_pos=mu[None].expand(S, N),
+            W=w[None].expand(S, N),
+            mu0=mu0,
+            I0=I0,
+            phi0=phi0,
+            rescale_factor=rescale,
+            omega_arr=omega_arr,
+            f_arr=f_arr,
+            scaled_omega_arr=scaled_omega,
+            weighted_leg_all=weighted_leg_all,
+            weighted_scaled_leg=weighted_scaled_leg,
+            fvec_up=fvec_up,
+            fvec_dn=fvec_dn,
+            fb_up=fb_up,
+            fb_dn=fb_dn,
+            fi_up=torch.einsum("i,slik->slk", mu_w, mathscr_b[:, :, :N]),
+            fi_dn=torch.einsum("i,slik->slk", mu_w, mathscr_b[:, :, N:]),
+        ), um

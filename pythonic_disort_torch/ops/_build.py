@@ -21,9 +21,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 from torch.autograd import forward_ad
+
+from ..utils import profiling
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -75,19 +78,26 @@ def _finish(name, started, out: Path) -> None:
     os.replace(tmp, out)
 
 
-def build(names) -> None:
-    """Compile the named sources, one nvcc each, all started together."""
+def build(names) -> list[str]:
+    """Compile the named sources, one nvcc each, all started together;
+    returns the names nvcc compiled (those not built already)."""
     jobs = [(name, *_start(name)) for name in names]
     for name, started, out in jobs:
         _finish(name, started, out)
+    return [name for name, started, _ in jobs if started is not None]
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use; each
+    load is recorded (`profiling.built`) with its seconds and whether nvcc
+    ran."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        with profiling.span("disort.build"):
+            t0 = time.perf_counter()
+            compiled = build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            profiling.built(name, time.perf_counter() - t0, bool(compiled))
         _loaded[name] = lib
     return lib
 

@@ -25,6 +25,7 @@ import scipy.constants as const
 import torch
 
 from ..parallel.batch import _device
+from ..utils.profiling import from_host, span
 
 _C2 = 100.0 * const.h * const.c / const.k        # second radiation constant x100
 _PREF = 2e8 * const.h * const.c**2
@@ -41,7 +42,8 @@ def _tensors(*xs, device=None):
     for x in xs:
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
-            x = torch.as_tensor(x if np.issubdtype(x.dtype, np.floating) else x.astype(np.float64), device=on)
+            x = from_host(torch.as_tensor(x if np.issubdtype(x.dtype, np.floating) else x.astype(np.float64),
+                                          device=on))
         out.append(x)
     return out
 
@@ -84,14 +86,16 @@ def band_integrated_emission(T, wvnmlo, wvnmhi, order=32, panels=8, device=None)
     edges are Python floats.  The nodes and weights are made once per
     call, in T's dtype on T's device.
     """
-    (T,) = _tensors(T, device=device)
-    lo, hi = float(wvnmlo), float(wvnmhi)
-    if hi <= lo:
-        return torch.zeros_like(T)
-    nodes, weights = _panel_rule(lo, hi, order, panels)
-    nodes = torch.as_tensor(nodes, dtype=T.dtype, device=T.device)
-    weights = torch.as_tensor(weights, dtype=T.dtype, device=T.device)
-    return torch.sum(planck(T[..., None], nodes) * weights, dim=-1)
+    with span("disort.planck.emission"):
+        (T,) = _tensors(T, device=device)
+        lo, hi = float(wvnmlo), float(wvnmhi)
+        if hi <= lo:
+            return torch.zeros_like(T)
+        with span("disort.planck.rule"):
+            nodes, weights = _panel_rule(lo, hi, order, panels)
+            nodes = from_host(torch.as_tensor(nodes, dtype=T.dtype, device=T.device))
+            weights = from_host(torch.as_tensor(weights, dtype=T.dtype, device=T.device))
+        return torch.sum(planck(T[..., None], nodes) * weights, dim=-1)
 
 
 def s_poly_coeffs_from_temper(tau_arr, temper, wvnmlo, wvnmhi, device=None, **quad_kw):

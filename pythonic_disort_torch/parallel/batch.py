@@ -29,6 +29,7 @@ from ..models.disort.solve import solve
 from ..models.disort.types import DisortConfig, DisortProblem
 from ..ops._build import has_tangent
 from ..ops.legendre import normalized_assoc_legendre_host
+from ..utils.profiling import count, from_host, span
 from .mesh import BATCH_AXIS
 
 # The production batched solve; `solve_vmapped`, the single-column `solve`
@@ -90,46 +91,55 @@ def make_batched_problem(
     (gradients w.r.t. omega, tau, mu0, ...).
     """
     device = _device(device)
-    B, L = np.shape(tau_arr)
-    N, NF = config.n, config.nfourier
+    with span("disort.entry"):
+        B, L = np.shape(tau_arr)
+        N, NF = config.n, config.nfourier
 
-    def _arr(x, shape=None):
-        if x is None:
-            return torch.zeros((B,) + shape, dtype=dtype, device=device)
-        if isinstance(x, torch.Tensor):
-            return x.to(dtype=dtype, device=device)
-        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+        def _arr(x, shape=None):
+            if x is None:
+                return torch.zeros((B,) + shape, dtype=dtype, device=device)
+            if isinstance(x, torch.Tensor) and (x.device.type != "cpu" or device.type == "cpu"):
+                return x.to(dtype=dtype, device=device)      # no copy out of host memory
+            with span("disort.entry.copy"):
+                return from_host(x.to(dtype=dtype, device=device) if isinstance(x, torch.Tensor)
+                                 else torch.tensor(np.asarray(x), dtype=dtype, device=device))
 
-    if isinstance(mu0, torch.Tensor) and (mu0.requires_grad or has_tangent(mu0)):
-        lam_mu0 = None
-    else:
-        mu0_host = (mu0.detach().cpu().double().numpy() if isinstance(mu0, torch.Tensor)
-                    else np.asarray(mu0, np.float64))
-        lam_mu0 = _arr(np.transpose(normalized_assoc_legendre_host(NF, config.nleg, -mu0_host), (2, 0, 1)))
+        if isinstance(mu0, torch.Tensor) and (mu0.requires_grad or has_tangent(mu0)):
+            lam_mu0 = None
+        else:
+            with span("disort.entry.legendre"):
+                if isinstance(mu0, torch.Tensor):
+                    if mu0.is_cuda:
+                        count("host_syncs")
+                    mu0_host = mu0.detach().cpu().double().numpy()
+                else:
+                    mu0_host = np.asarray(mu0, np.float64)
+                lam_mu0 = _arr(np.transpose(normalized_assoc_legendre_host(NF, config.nleg, -mu0_host), (2, 0, 1)))
 
-    return DisortProblem(
-        config=config,
-        tau_arr=_arr(tau_arr),
-        omega_arr=_arr(omega_arr),
-        leg_coeffs_all=_arr(leg_coeffs_all),
-        f_arr=_arr(f_arr, (L,)),
-        mu0=_arr(mu0),
-        I0=_arr(I0),
-        phi0=_arr(phi0, ()),
-        b_pos=_arr(b_pos, (N, NF)),
-        b_neg=_arr(b_neg, (N, NF)),
-        s_poly_coeffs=_arr(s_poly_coeffs, (L, max(config.nscoeffs, 1))),
-        bdrf_modes=_arr(bdrf_modes, (max(config.nbdrf, 1), N, N)),
-        bdrf_modes_mu0=_arr(bdrf_modes_mu0, (max(config.nbdrf, 1), N)),
-        lam_mu0=lam_mu0,
-    )
+        return DisortProblem(
+            config=config,
+            tau_arr=_arr(tau_arr),
+            omega_arr=_arr(omega_arr),
+            leg_coeffs_all=_arr(leg_coeffs_all),
+            f_arr=_arr(f_arr, (L,)),
+            mu0=_arr(mu0),
+            I0=_arr(I0),
+            phi0=_arr(phi0, ()),
+            b_pos=_arr(b_pos, (N, NF)),
+            b_neg=_arr(b_neg, (N, NF)),
+            s_poly_coeffs=_arr(s_poly_coeffs, (L, max(config.nscoeffs, 1))),
+            bdrf_modes=_arr(bdrf_modes, (max(config.nbdrf, 1), N, N)),
+            bdrf_modes_mu0=_arr(bdrf_modes_mu0, (max(config.nbdrf, 1), N)),
+            lam_mu0=lam_mu0,
+        )
 
 
 def _on(like, x):
     """``x`` as a tensor of the dtype and device of ``like`` (a problem or a
     solution).  Probe depths and azimuths are best tensors there already:
     an array is copied over first, and that copy synchronizes the stream."""
-    return torch.as_tensor(x, dtype=like.tau_arr.dtype, device=like.tau_arr.device)
+    out = torch.as_tensor(x, dtype=like.tau_arr.dtype, device=like.tau_arr.device)
+    return out if isinstance(x, torch.Tensor) and x.device.type != "cpu" else from_host(out)
 
 
 def _with_gc(sol):
@@ -140,17 +150,23 @@ def _with_gc(sol):
 
 def fluxes_at(sol, tau):
     """(flux_up, flux_down_diffuse, flux_down_direct), each (B, Ntau)."""
-    return ev.fluxes_all(sol, _on(sol, tau))
+    tau = _on(sol, tau)
+    with span("disort.eval.fluxes", tau.device):
+        return ev.fluxes_all(sol, tau)
 
 
 def u0_at(sol, tau):
     """Zeroth Fourier mode of the intensity: (B, 2N, Ntau)."""
-    return ev.u0(_with_gc(sol), _on(sol, tau))
+    sol, tau = _with_gc(sol), _on(sol, tau)
+    with span("disort.eval.modes", tau.device):
+        return ev.u0(sol, tau)
 
 
 def u_at(sol, tau, phi):
     """Full intensity: (B, 2N, Ntau, Nphi); ``tau`` (B, Ntau), ``phi`` (B, Nphi)."""
-    return ev.u(_with_gc(sol), _on(sol, tau), _on(sol, phi))
+    sol, tau, phi = _with_gc(sol), _on(sol, tau), _on(sol, phi)
+    with span("disort.eval.modes", tau.device):
+        return ev.u(sol, tau, phi)
 
 
 def u_corrected_at(sol, tau, phi):
@@ -158,9 +174,12 @@ def u_corrected_at(sol, tau, phi):
 
     The reference's intensity output under ``NT_cor=True`` (reference
     ``pydisort.py:643-698``): `u_at` plus the TMS/IMS correction, both
-    evaluated on the whole batch.
+    evaluated on the whole batch (``nt.u_corrected``'s sum).
     """
-    return nt.u_corrected(_with_gc(sol), _on(sol, tau), _on(sol, phi))
+    sol, tau, phi = _with_gc(sol), _on(sol, tau), _on(sol, phi)
+    with span("disort.eval.nt", tau.device):
+        corr = sol.rescale_factor[:, None, None, None] * nt.nt_correction(sol, tau, phi)
+    return u_at(sol, tau, phi) + corr
 
 
 def solve_fluxes(problem: DisortProblem, tau_eval):
@@ -182,6 +201,8 @@ def _check_probes_per_layer(tau_arr, tau_eval):
     tops = torch.cat([torch.zeros_like(tau_arr[:, :1]), tau_arr[:, :-1]], dim=1)
     above = tau_eval > tops
     above[:, 0] |= tau_eval[:, 0] == 0
+    if tau_eval.is_cuda:
+        count("host_syncs")
     if not bool((above & (tau_eval <= tau_arr)).all()):
         raise ValueError("probes_per_layer needs probe t inside layer t: tau_{t-1} < tau_eval[:, t] <= tau_t")
 
@@ -206,13 +227,17 @@ def solve_intensity(problem: DisortProblem, tau_eval, phi_eval, nt_correct=None,
         return (u_corrected_at if nt_correct else u_at)(sol, tau_eval, phi_eval)
     _check_probes_per_layer(problem.tau_arr, tau_eval)
     sol, um = solve_batched_probes(problem, tau_eval)
-    NF = problem.config.nfourier
-    modes = torch.arange(NF, dtype=um.dtype, device=um.device)
-    cos = torch.cos(modes[None, :, None] * (sol.phi0[:, None, None] - phi_eval[:, None, :]))   # (B, NF, Nphi)
-    u = torch.einsum("smit,smp->sitp", um, cos)
     if nt_correct:
-        u = u + nt.nt_correction(sol, tau_eval, phi_eval)
-    return sol.rescale_factor[:, None, None, None] * u
+        with span("disort.eval.nt", um.device):
+            corr = nt.nt_correction(sol, tau_eval, phi_eval)
+    with span("disort.eval.modes", um.device):
+        NF = problem.config.nfourier
+        modes = torch.arange(NF, dtype=um.dtype, device=um.device)
+        cos = torch.cos(modes[None, :, None] * (sol.phi0[:, None, None] - phi_eval[:, None, :]))   # (B, NF, Nphi)
+        u = torch.einsum("smit,smp->sitp", um, cos)
+        if nt_correct:
+            u = u + corr
+        return sol.rescale_factor[:, None, None, None] * u
 
 
 def actinic_at(sol, tau):

@@ -1,64 +1,203 @@
-"""Observability: wall-clock stage timing, device traces, a NaN guard.
+"""Observability: spans and counters inside the port, device traces, a
+NaN guard.
 
 Counterpart of ``pythonic_disort_tpu/utils/profiling.py``:
 
-- ``device_sync`` and ``StageTimer``: structured wall-clock timing of
-  named stages, synchronized with the device of a result;
+- ``span`` and ``count``: the port's named stages and counts, recorded
+  only while a ``torch.profiler`` runs (any profiler: ``trace`` below,
+  or ``torch.profiler.profile``).  A span is then a host event in the
+  profiler's trace, on the clock of its device timeline, and its host
+  time (and, given a CUDA device, its extent on the device's stream)
+  adds to in-memory totals; ``recorded`` returns the totals, ``reset``
+  clears them.  With no profiler running a span is a shared no-op and a
+  count does nothing;
 - ``trace``: ``torch.profiler`` around a block, its trace written to a
   directory (open it in Perfetto or TensorBoard);
 - ``nan_guard``: raise on a NaN produced inside the block (the
   counterpart of JAX's ``jax_debug_nans``).
+
+The spans (``device`` marks those timed on the device as well):
+
+- ``disort.entry``, ``disort.entry.legendre``, ``disort.entry.copy``:
+  `make_batched_problem`, its host table of the beam's Legendre basis,
+  and each copy of a host array to the problem's device;
+- ``disort.solve.assemble``, ``.eig``, ``.operands``, ``.bvp``,
+  ``.outputs`` (device): the stages of the batched solve
+  (``models/disort/batch_solve.py``);
+- ``disort.eval.fluxes``, ``disort.eval.modes``, ``disort.eval.nt``
+  (device): the batched evaluators (``parallel/batch.py``);
+- ``disort.planck.emission``, ``disort.planck.rule``: the device Planck
+  route's band integral and its host panel rule (``ops/planck.py``);
+- ``disort.build``: loading a kernel (``ops/_build.py``).  Its seconds,
+  and whether nvcc ran, are recorded under ``builds`` with or without a
+  profiler: a load happens once a kernel a process.
+
+The counters: ``h2d_bytes``, the bytes the port copies from host memory
+to a CUDA device, and ``host_syncs``, each point where the port blocks
+the host on the device (each such pageable copy, each device value read
+on the host).
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
+import threading
 import time
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-
-def device_sync(x):
-    """Wait for the device of the first tensor in ``x`` (any nesting of
-    tuples, lists, dicts and named tuples) to finish its work; return ``x``."""
-    for leaf in tree_leaves(x):
-        if isinstance(leaf, torch.Tensor):
-            if leaf.is_cuda:
-                torch.cuda.synchronize(leaf.device)
-            break
-    return x
+# the gate of every span and counter: whether a profiler runs
+_enabled = torch._C._autograd._profiler_enabled
+# a host range of the profiler's own scope: unlike ``record_function``, the
+# profiler does not mirror it on the device's timeline as an annotation
+_Range = torch._C._profiler._RecordFunctionFast
+_OFF = contextlib.nullcontext()
 
 
-class StageTimer:
-    """Accumulate named stage timings; render as a JSON line."""
+class _Record:
+    """The totals behind `recorded`, one lock around each update."""
 
     def __init__(self):
-        self.stages = {}
+        self.lock = threading.Lock()
+        self.clear()
 
-    @contextlib.contextmanager
-    def stage(self, name, sync=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                device_sync(sync)
-            self.stages[name] = self.stages.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
+    def clear(self):
+        self.spans = {}         # name -> [calls, host seconds]
+        self.device_ms = {}     # name -> device ms of the resolved event pairs
+        self.pending = {}       # name -> [(start event, end event)]
+        self.counters = {}
+        self.builds = {}
 
-    def report(self):
-        return json.dumps({k: round(v, 6) for k, v in self.stages.items()})
+
+_RECORD = _Record()
+
+
+class _Span:
+    __slots__ = ("name", "stream", "events", "range", "t0")
+
+    def __init__(self, name, device):
+        self.name = name
+        self.stream = torch.cuda.current_stream(device) if device is not None and device.type == "cuda" else None
+
+    def __enter__(self):
+        self.range = _Range(self.name)
+        self.range.__enter__()
+        if self.stream is not None:
+            self.events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            self.events[0].record(self.stream)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        host = time.perf_counter() - self.t0
+        if self.stream is not None:
+            self.events[1].record(self.stream)
+        self.range.__exit__(*exc)
+        r = _RECORD
+        with r.lock:
+            total = r.spans.setdefault(self.name, [0, 0.0])
+            total[0] += 1
+            total[1] += host
+            if self.stream is not None:
+                r.pending.setdefault(self.name, []).append(self.events)
+        return False
+
+
+def span(name: str, device: torch.device | None = None):
+    """A context manager recording the stage ``name`` while a profiler
+    runs: a host range in the profiler's trace, its host time in the
+    totals, and on a CUDA ``device`` (the device of the stage's tensors) a
+    pair of timing events on the device's current stream, whose extent
+    `recorded` reads.  It never synchronizes.  With no profiler running it
+    returns a shared no-op."""
+    if not _enabled():
+        return _OFF
+    return _Span(name, device)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler runs."""
+    if _enabled():
+        r = _RECORD
+        with r.lock:
+            r.counters[name] = r.counters.get(name, 0) + n
+
+
+def from_host(t: torch.Tensor) -> torch.Tensor:
+    """Count ``t``, just copied from host memory, if it lies on a CUDA
+    device: its bytes (``h2d_bytes``) and the host sync of the pageable
+    copy (``host_syncs``).  Returns ``t``."""
+    if t.is_cuda and _enabled():
+        count("h2d_bytes", t.nbytes)
+        count("host_syncs")
+    return t
+
+
+def built(kernel: str, seconds: float, nvcc: bool) -> None:
+    """Record a kernel's load (with or without a profiler): its seconds and
+    whether nvcc compiled it."""
+    r = _RECORD
+    with r.lock:
+        r.builds[kernel] = {"seconds": seconds, "nvcc": nvcc}
+
+
+def _launch_counters():
+    """The kernel wrappers that count their launches in ``.launches``."""
+    from ..ops import cuda_blocktri as bt
+    from ..ops import cuda_eig, cuda_jacobi
+
+    return (cuda_eig.eig_stage_lanes, bt.solve_bvp_fused, bt.solve_bvp_fused_wide, bt.solve_block_tridiag_lanes_cuda,
+            bt.solve_block_tridiag_lanes_wide, cuda_jacobi.jacobi_eigh_lanes, cuda_jacobi.jacobi_eigh_lanes_wide)
+
+
+def recorded() -> dict:
+    """The totals since the last `reset`:
+
+    ``{"spans": {name: {"calls", "host_ms", "device_ms"}}, "counters":
+    {name: n}, "builds": {kernel: {"seconds", "nvcc"}}, "launches":
+    {wrapper: n}}``.
+
+    ``device_ms`` sums the device extents of a span's completed event
+    pairs (None for a span never timed on a device); call it after the
+    device has finished the work (``torch.cuda.synchronize()``): a pair
+    still pending is left for a later call.  ``launches`` reads the
+    kernel wrappers' ``.launches`` counters.
+    """
+    r = _RECORD
+    with r.lock:
+        for name, pairs in r.pending.items():
+            ms, left = r.device_ms.get(name, 0.0), []
+            for a, b in pairs:
+                if b.query():               # the end event done: the stream passed both
+                    ms += a.elapsed_time(b)
+                else:
+                    left.append((a, b))
+            r.device_ms[name] = ms
+            pairs[:] = left
+        spans = {name: {"calls": calls, "host_ms": 1e3 * host, "device_ms": r.device_ms.get(name)}
+                 for name, (calls, host) in r.spans.items()}
+        out = {"spans": spans, "counters": dict(r.counters),
+               "builds": {k: dict(v) for k, v in r.builds.items()}}
+    out["launches"] = {w.__name__: w.launches for w in _launch_counters()}
+    return out
+
+
+def reset() -> None:
+    """Clear the totals, the builds and the wrappers' launch counters."""
+    with _RECORD.lock:
+        _RECORD.clear()
+    for w in _launch_counters():
+        w.launches = 0
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Trace the block with ``torch.profiler`` (host, and the card's
     kernels and copies where there is one); the trace is written to
-    ``log_dir`` as ``<worker>.<time>.pt.trace.json`` when the block ends."""
+    ``log_dir`` as ``<worker>.<time>.pt.trace.json`` when the block ends.
+    The port's spans and counters are recorded inside it."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]

@@ -1,0 +1,188 @@
+"""The port's recorder (``utils/profiling.py``: ``span``, ``count``,
+``recorded``, ``reset``) on the CPU: nothing recorded without a profiler,
+the stage spans of the batched solve, the Planck route and the NT
+intensity under one, how they nest, that none lies on a device timeline,
+that outputs do not change, and the kernel loads it records always."""
+
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import pythonic_disort_torch as pt
+from pythonic_disort_torch.ops import _build, cuda_eig, planck
+from pythonic_disort_torch.utils import profiling
+
+R, L, NQ, NF = 4, 5, 8, 4
+SOLVE = {"disort.entry", "disort.entry.copy", "disort.entry.legendre", "disort.solve.assemble", "disort.solve.eig",
+         "disort.solve.operands", "disort.solve.bvp", "disort.solve.outputs"}
+
+
+@pytest.fixture(autouse=True)
+def _clean_record():
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+def _arrays():
+    rng = np.random.default_rng(11)
+    tau = np.cumsum(rng.uniform(0.05, 0.5, (R, L)), 1)
+    om, g = rng.uniform(0.3, 0.99, (R, L)), rng.uniform(0.5, 0.85, (R, L))
+    leg = g[..., None] ** np.arange(NQ + 1)
+    return dict(tau=tau, om=om, leg=leg, f=leg[..., NQ], mu0=rng.uniform(0.2, 1, R), I0=np.full(R, np.pi),
+                phi0=rng.uniform(0, 6, R))
+
+
+def _config(nfourier=1, only_flux=True, nt_correct=False):
+    return pt.DisortConfig(nquad=NQ, nleg=NQ, nleg_all=NQ + 1, nlayers=L, nfourier=nfourier, nscoeffs=0, nbdrf=0,
+                           has_beam=True, only_flux=only_flux, nt_correct=nt_correct, has_deltam=True)
+
+
+def _problem(cfg, a):
+    return pt.make_batched_problem(cfg, a["tau"], a["om"], a["leg"], a["mu0"], a["I0"], phi0=a["phi0"], f_arr=a["f"],
+                                   dtype=torch.float64, device="cpu")
+
+
+def flux_call():
+    a = _arrays()
+    p = _problem(_config(), a)
+    return pt.solve_fluxes(p, p.tau_arr)
+
+
+def planck_call():
+    temper = torch.linspace(200.0, 300.0, L + 1, dtype=torch.float64).expand(R, L + 1)
+    tau = torch.as_tensor(_arrays()["tau"])
+    return (planck.s_poly_coeffs_from_temper(tau, temper, 500.0, 1000.0),
+            planck.band_integrated_emission(temper[:, -1], 10.0, 500.0))
+
+
+def nt_probes_call():
+    a = _arrays()
+    p = _problem(_config(NF, only_flux=False, nt_correct=True), a)
+    phi = torch.tensor(np.tile([0.0, 1.6, 3.1], (R, 1)))
+    return pt.solve_intensity(p, p.tau_arr * (1 - 1e-6), phi, probes_per_layer=True)
+
+
+def nt_general_call():
+    a = _arrays()
+    p = _problem(_config(NF, only_flux=False, nt_correct=True), a)
+    phi = torch.tensor(np.tile([0.0, 1.6, 3.1], (R, 1)))
+    return pt.solve_intensity(p, p.tau_arr * 0.5, phi)
+
+
+CALLS = {"flux": (flux_call, SOLVE | {"disort.eval.fluxes"}),
+         "planck": (planck_call, {"disort.planck.emission", "disort.planck.rule"}),
+         "nt_probes": (nt_probes_call, SOLVE | {"disort.eval.nt", "disort.eval.modes"}),
+         "nt_general": (nt_general_call, SOLVE | {"disort.eval.nt", "disort.eval.modes"})}
+
+
+def _profiled(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof
+
+
+def test_nothing_recorded_without_a_profiler():
+    flux_call()
+    rec = profiling.recorded()
+    assert rec["spans"] == {} and rec["counters"] == {} and rec["builds"] == {}
+    assert profiling.span("disort.entry") is profiling.span("disort.solve.eig", torch.device("cpu"))
+
+
+@pytest.mark.parametrize("call", sorted(CALLS))
+def test_each_call_records_its_spans(call):
+    fn, names = CALLS[call]
+    _, prof = _profiled(fn)
+    rec = profiling.recorded()
+    assert set(rec["spans"]) == names
+    for s in rec["spans"].values():
+        assert s["calls"] >= 1 and s["host_ms"] > 0 and s["device_ms"] is None     # no device on the CPU
+    assert {e.name for e in prof.events() if e.name.startswith("disort.")} == names
+    # no copy to a CUDA device here, and no host read of one
+    assert rec["counters"].get("h2d_bytes", 0) == 0 and rec["counters"].get("host_syncs", 0) == 0
+    assert set(rec["launches"]) == {"eig_stage_lanes", "solve_bvp_fused", "solve_bvp_fused_wide",
+                                    "solve_block_tridiag_lanes_cuda", "solve_block_tridiag_lanes_wide",
+                                    "jacobi_eigh_lanes", "jacobi_eigh_lanes_wide"}
+
+
+def test_entry_copies_nest_inside_the_entry_and_no_span_is_on_a_device():
+    from torch.autograd import DeviceType
+
+    _, prof = _profiled(flux_call)
+    events = [e for e in prof.events() if e.name.startswith("disort.")]
+    assert events and all(e.device_type == DeviceType.CPU for e in events)
+    entry = [e for e in events if e.name == "disort.entry"]
+    copies = [e for e in events if e.name == "disort.entry.copy"]
+    assert len(entry) == 1 and len(copies) == 8          # tau, omega, leg, f, mu0, I0, phi0, lam_mu0
+    e = entry[0]
+    for c in copies:
+        assert c.thread == e.thread and e.time_range.start <= c.time_range.start <= c.time_range.end <= e.time_range.end
+    assert profiling.recorded()["spans"]["disort.entry.copy"]["calls"] == 8
+
+
+@pytest.mark.parametrize("call", sorted(CALLS))
+def test_outputs_bitwise_equal_under_the_profiler(call):
+    fn = CALLS[call][0]
+    plain = fn()
+    traced, _ = _profiled(fn)
+    plain, traced = (x if isinstance(x, tuple) else (x,) for x in (plain, traced))
+    assert len(plain) == len(traced) and all(torch.equal(x, y) for x, y in zip(plain, traced))
+
+
+def test_reset_empties_the_record():
+    _profiled(flux_call)
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count("host_syncs", 3)
+    profiling.built("eig_stage", 0.5, False)
+    cuda_eig.eig_stage_lanes.launches = 2
+    rec = profiling.recorded()
+    assert rec["spans"] and rec["counters"] == {"host_syncs": 3} and rec["builds"]
+    assert rec["launches"]["eig_stage_lanes"] == 2
+    profiling.reset()
+    rec = profiling.recorded()
+    assert rec["spans"] == {} and rec["counters"] == {} and rec["builds"] == {}
+    assert set(rec["launches"].values()) == {0}
+
+
+@pytest.mark.parametrize("compiled", [["eig_stage"], []])
+def test_kernel_loads_are_recorded_without_a_profiler(monkeypatch, compiled):
+    """`_build.load` with the build stubbed: a kernel compiled, or found
+    built; a second load of a loaded kernel records nothing."""
+    lib = object()
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "build", lambda names: list(compiled))
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: lib)
+    assert _build.load("eig_stage") is lib
+    builds = profiling.recorded()["builds"]
+    assert list(builds) == ["eig_stage"] and builds["eig_stage"]["nvcc"] is bool(compiled)
+    assert builds["eig_stage"]["seconds"] >= 0
+    profiling.reset()
+    assert _build.load("eig_stage") is lib and profiling.recorded()["builds"] == {}
+
+
+def test_totals_under_threads(monkeypatch):
+    """Eight threads update one span and one counter at once (the gate
+    forced on): no update is lost."""
+    monkeypatch.setattr(profiling, "_enabled", lambda: True)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(2000):
+                with profiling.span("disort.test"):
+                    profiling.count("n")
+
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    rec = profiling.recorded()
+    assert rec["counters"] == {"n": 16000} and rec["spans"]["disort.test"]["calls"] == 16000

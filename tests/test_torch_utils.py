@@ -34,7 +34,8 @@ import pythonic_disort_torch as pt
 from pythonic_disort_torch import subroutines as tsub
 from pythonic_disort_torch.models import surfaces as tsurfaces
 from pythonic_disort_torch.models.disort.solve import iso_particular_tensor, iso_poly_eval
-from pythonic_disort_torch.utils.profiling import StageTimer, device_sync, nan_guard, trace
+from pythonic_disort_torch.utils import profiling
+from pythonic_disort_torch.utils.profiling import nan_guard, trace
 from test_stamnes import CASES as CASES_A
 from test_stamnes_sources import CASES as CASES_B
 
@@ -313,15 +314,26 @@ def test_antiderivative_through_the_port(s_coeffs):
 
 # ------------------------------------------------------------ profiling
 def test_stage_timer_and_device_sync():
-    t = StageTimer()
-    x = torch.ones(3)
-    with t.stage("a", sync=(x, [x])):
-        sum(range(1000))
-    with t.stage("a"):
-        pass
-    assert '"a"' in t.report() and t.stages["a"] > 0
-    assert device_sync({"k": (x,)})["k"][0] is x
-    assert device_sync([]) == []
+    """The recorder that replaced ``StageTimer`` and ``device_sync``: named
+    stages timed (nested, repeated) and counted under a profiler, with
+    nothing to synchronize on the CPU; nothing recorded without one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.reset()
+    with profiling.span("a"):
+        profiling.count("n")
+    assert profiling.recorded()["spans"] == {} and profiling.recorded()["counters"] == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        with profiling.span("a", torch.device("cpu")):
+            with profiling.span("b"):
+                sum(range(1000))
+        with profiling.span("a"):
+            profiling.count("n", 2)
+    rec = profiling.recorded()
+    assert rec["spans"]["a"]["calls"] == 2 and rec["spans"]["b"]["calls"] == 1
+    assert rec["spans"]["a"]["host_ms"] >= rec["spans"]["b"]["host_ms"] > 0
+    assert rec["spans"]["a"]["device_ms"] is None and rec["counters"] == {"n": 2}
+    profiling.reset()
 
 
 def test_trace_writes_a_file(tmp_path):
