@@ -11,7 +11,10 @@ role of ``scipy.integrate.quad_vec`` in reference
 The Planck integrand in wavenumber is smooth but sharply peaked near
 ``wv_peak ~ 1.93 T`` (wavenumber in cm^-1 when ``T`` in kelvin); for
 wide bands a uniform panel split under-resolves the peak, so panels are
-placed on a geometric grid anchored at the band's top.
+placed on a geometric grid anchored at the band's top.  A band's nodes
+and weights are built on the host and copied to the device once, then
+kept there (``_band_rule``): a sweep calls the route with the same bands
+chunk after chunk, and each copy from pageable memory blocks the host.
 
 A tensor argument runs on its own device; other arguments go to the
 device of a tensor argument, else to ``cuda`` unless ``device="cpu"`` is
@@ -20,12 +23,14 @@ given (``parallel/batch.py::_device``).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import scipy.constants as const
 import torch
 
 from ..parallel.batch import _device
-from ..utils.profiling import from_host, span
+from ..utils.profiling import count, from_host, span
 
 _C2 = 100.0 * const.h * const.c / const.k        # second radiation constant x100
 _PREF = 2e8 * const.h * const.c**2
@@ -79,12 +84,43 @@ def _panel_rule(lo, hi, order, panels):
     return (0.5 * (b - a) * x + 0.5 * (a + b)).ravel(), (0.5 * (b - a) * w).ravel()
 
 
+_RULES_MAX = 256
+_RULES = {}                 # (lo, hi, order, panels, dtype, device) -> (nodes, weights), oldest first
+_RULES_LOCK = threading.Lock()
+
+
+def _band_rule(lo, hi, order, panels, dtype, device):
+    """`_panel_rule`'s nodes and weights in ``dtype`` on ``device``, built
+    and copied on the first call with these arguments and kept: at most
+    ``_RULES_MAX`` rules, the oldest dropped first.
+
+    Built outside inference mode, so that a rule first asked for under
+    ``torch.inference_mode`` can still be saved for a backward pass.
+    Counts ``planck_rule_hits`` or ``planck_rule_builds``.
+    """
+    key = (lo, hi, order, panels, dtype, device)
+    rule = _RULES.get(key)
+    if rule is not None:
+        count("planck_rule_hits")
+        return rule
+    count("planck_rule_builds")
+    nodes, weights = _panel_rule(lo, hi, order, panels)
+    with torch.inference_mode(False):
+        rule = (from_host(torch.as_tensor(nodes, dtype=dtype, device=device)),
+                from_host(torch.as_tensor(weights, dtype=dtype, device=device)))
+    with _RULES_LOCK:
+        if key not in _RULES and len(_RULES) >= _RULES_MAX:
+            del _RULES[next(iter(_RULES))]
+        _RULES[key] = rule
+    return rule
+
+
 def band_integrated_emission(T, wvnmlo, wvnmhi, order=32, panels=8, device=None):
     """Integral of ``planck(T, .)`` over [wvnmlo, wvnmhi].
 
     T may be any shape (broadcast against the quadrature grid); the band
-    edges are Python floats.  The nodes and weights are made once per
-    call, in T's dtype on T's device.
+    edges are Python floats.  The nodes and weights, in T's dtype on T's
+    device, come from `_band_rule`.
     """
     with span("disort.planck.emission"):
         (T,) = _tensors(T, device=device)
@@ -92,9 +128,7 @@ def band_integrated_emission(T, wvnmlo, wvnmhi, order=32, panels=8, device=None)
         if hi <= lo:
             return torch.zeros_like(T)
         with span("disort.planck.rule"):
-            nodes, weights = _panel_rule(lo, hi, order, panels)
-            nodes = from_host(torch.as_tensor(nodes, dtype=T.dtype, device=T.device))
-            weights = from_host(torch.as_tensor(weights, dtype=T.dtype, device=T.device))
+            nodes, weights = _band_rule(lo, hi, order, panels, T.dtype, T.device)
         return torch.sum(planck(T[..., None], nodes) * weights, dim=-1)
 
 

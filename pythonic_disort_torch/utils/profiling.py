@@ -27,15 +27,17 @@ The spans (``device`` marks those timed on the device as well):
 - ``disort.eval.fluxes``, ``disort.eval.modes``, ``disort.eval.nt``
   (device): the batched evaluators (``parallel/batch.py``);
 - ``disort.planck.emission``, ``disort.planck.rule``: the device Planck
-  route's band integral and its host panel rule (``ops/planck.py``);
+  route's band integral, and the lookup of the band's cached quadrature
+  rule, built on the host and copied on a miss (``ops/planck.py``);
 - ``disort.build``: loading a kernel (``ops/_build.py``).  Its seconds,
   and whether nvcc ran, are recorded under ``builds`` with or without a
   profiler: a load happens once a kernel a process.
 
 The counters: ``h2d_bytes``, the bytes the port copies from host memory
-to a CUDA device, and ``host_syncs``, each point where the port blocks
-the host on the device (each such pageable copy, each device value read
-on the host).
+to a CUDA device; ``host_syncs``, each point where the port blocks the
+host on the device (each such pageable copy, each device value read on
+the host); ``planck_rule_hits`` and ``planck_rule_builds``, the Planck
+route's rule lookups served by its cache and those that built the rule.
 """
 
 from __future__ import annotations

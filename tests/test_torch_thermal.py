@@ -11,6 +11,8 @@ to the temperatures against ``jax.grad``.  The atmosphere is
 ``tests/test_thermal_device.py``'s, cut to 8 layers.
 """
 
+import sys
+import threading
 import warnings
 
 import numpy as np
@@ -218,3 +220,101 @@ def test_numpy_inputs_default_to_cuda():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tplanck.band_integrated_emission(np.array([250.0]), 100.0, 900.0)
+
+
+# (lo, hi): hi * 1e-4 < lo, so the geometric panels start at lo; lo = 0;
+# hi * 1e-4 > lo, so a first panel [lo, hi * 1e-4] comes before them
+RULE_BANDS = [(200.0, 600.0), (0.0, 50000.0), (0.01, 3250.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lo,hi", RULE_BANDS)
+def test_cached_rule_gives_the_fresh_rules_outputs_bit_for_bit(lo, hi, dtype):
+    """With the rule cache cleared and then warm, the band integral and the
+    source polynomials equal, bit for bit, those of a rule built afresh
+    for the call (what the route computed before it kept its rules); the
+    cached nodes and weights are `_panel_rule`'s cast to the dtype; in
+    float64 the warm outputs stay at the JAX route's roundoff."""
+    tau, _, temper, _ = _atmosphere()
+    T, t = torch.tensor(temper, dtype=dtype), torch.tensor(tau[0], dtype=dtype)
+    nodes, weights = (torch.as_tensor(x, dtype=dtype) for x in tplanck._panel_rule(lo, hi, 32, 8))
+    fresh = torch.sum(tplanck.planck(T[..., None], nodes) * weights, dim=-1)
+    tplanck._RULES.clear()
+    cold = tplanck.band_integrated_emission(T, lo, hi), tplanck.s_poly_coeffs_from_temper(t, T, lo, hi)
+    assert list(tplanck._RULES) == [(lo, hi, 32, 8, dtype, T.device)]
+    warm = tplanck.band_integrated_emission(T, lo, hi), tplanck.s_poly_coeffs_from_temper(t, T, lo, hi)
+    assert len(tplanck._RULES) == 1
+    cached = tplanck._RULES[(lo, hi, 32, 8, dtype, T.device)]
+    assert torch.equal(cached[0], nodes) and torch.equal(cached[1], weights)
+    assert cached[0].dtype == cached[1].dtype == dtype
+    assert torch.equal(cold[0], fresh) and torch.equal(warm[0], fresh)
+    assert torch.equal(cold[1], warm[1])
+    if dtype == torch.float64:
+        np.testing.assert_allclose(warm[0].numpy(), np.asarray(jplanck.band_integrated_emission(
+            jnp.asarray(temper), lo, hi)), rtol=1e-12)
+        np.testing.assert_allclose(warm[1].numpy(), np.asarray(jplanck.s_poly_coeffs_from_temper(
+            jnp.asarray(tau[0]), jnp.asarray(temper), lo, hi)), rtol=1e-12)
+
+
+def test_a_rule_built_in_inference_mode_serves_autograd():
+    """A rule first built under ``torch.inference_mode`` is no inference
+    tensor: d emission / d T through it, outside that mode, neither raises
+    nor differs from the gradient through a rule built outside it."""
+    lo, hi = BANDS[0]
+    temper = _atmosphere()[2]
+    tplanck._RULES.clear()
+    with torch.inference_mode():
+        first = tplanck.band_integrated_emission(torch.tensor(temper), lo, hi)
+    assert first.is_inference()
+    assert not any(x.is_inference() or x.requires_grad for x in tplanck._RULES[(lo, hi, 32, 8, torch.float64,
+                                                                                  torch.device("cpu"))])
+
+    def grad():
+        T = torch.tensor(temper, requires_grad=True)
+        return torch.autograd.grad(tplanck.band_integrated_emission(T, lo, hi).sum(), T)[0]
+
+    cached = grad()
+    tplanck._RULES.clear()
+    assert torch.equal(cached, grad())
+
+
+def test_rule_cache_keys_and_bound(monkeypatch):
+    """Another dtype, edge or order is another entry; the cache holds at
+    most ``_RULES_MAX`` rules, dropping the oldest, also with eight threads
+    filling it at once."""
+    T = torch.tensor([250.0, 280.0], **F64)
+    tplanck._RULES.clear()
+    for args in [(T, 100.0, 900.0), (T.float(), 100.0, 900.0), (T, 100.0, 901.0), (T, 100.0, 900.0, 16),
+                 (T, 100.0, 900.0)]:
+        tplanck.band_integrated_emission(*args)
+    cpu = torch.device("cpu")
+    assert list(tplanck._RULES) == [(100.0, 900.0, 32, 8, torch.float64, cpu), (100.0, 900.0, 32, 8, torch.float32, cpu),
+                                    (100.0, 901.0, 32, 8, torch.float64, cpu), (100.0, 900.0, 16, 8, torch.float64, cpu)]
+    monkeypatch.setattr(tplanck, "_RULES_MAX", 6)
+    for k in range(10):
+        tplanck.band_integrated_emission(T, 100.0, 200.0 + k, 4)
+    assert list(tplanck._RULES) == [(100.0, 200.0 + k, 4, 8, torch.float64, cpu) for k in range(4, 10)]
+
+    want = {k: tplanck.band_integrated_emission(T, 100.0, 300.0 + k, 4) for k in range(20)}
+    errors = []
+
+    def work(i):
+        try:
+            for k in [(i + j) % 20 for j in range(60)]:
+                if not torch.equal(tplanck.band_integrated_emission(T, 100.0, 300.0 + k, 4), want[k]):
+                    errors.append(k)
+        except Exception as e:          # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and errors == []
+    assert len(tplanck._RULES) <= 6

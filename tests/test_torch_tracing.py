@@ -148,6 +148,47 @@ def test_reset_empties_the_record():
     assert set(rec["launches"].values()) == {0}
 
 
+def test_planck_rule_builds_then_hits():
+    """With the rule cache cleared, the first band integral counts one
+    build and no hit, and a repeat one hit and no build; the rule's span is
+    recorded on the hit too."""
+    T = torch.full((R,), 250.0, dtype=torch.float64)
+    planck._RULES.clear()
+    first, _ = _profiled(lambda: planck.band_integrated_emission(T, 500.0, 1000.0))
+    rec = profiling.recorded()
+    assert rec["counters"].get("planck_rule_builds") == 1 and "planck_rule_hits" not in rec["counters"]
+    profiling.reset()
+    again, _ = _profiled(lambda: planck.band_integrated_emission(T, 500.0, 1000.0))
+    rec = profiling.recorded()
+    assert rec["counters"].get("planck_rule_hits") == 1 and "planck_rule_builds" not in rec["counters"]
+    assert rec["spans"]["disort.planck.rule"]["calls"] == 1 and torch.equal(first, again)
+
+
+@pytest.mark.parametrize("counters,want", [({"planck_rule_hits": 30, "planck_rule_builds": 2}, 93.75),
+                                           ({"planck_rule_hits": 64}, 100.0), ({"host_syncs": 6}, None)])
+def test_planck_rule_hit_pct_reads_the_counters(monkeypatch, counters, want):
+    """The benchmark's ``planck_rule_hit_pct`` on a record made by hand, per
+    traced step: hits over lookups in %, None where neither counter counted
+    (a port without the rule cache)."""
+    import importlib.util
+    import pathlib
+    import types
+
+    bench = pathlib.Path(__file__).resolve().parents[1] / "benchmark"
+    monkeypatch.syspath_prepend(str(bench))
+    from yardstick import recorder
+
+    spec = importlib.util.spec_from_file_location("planck_rule_hit_pct", bench / "metrics" / "planck_rule_hit_pct.py")
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+    rec = {"spans": {"disort.entry": {"calls": 2, "host_ms": 1.0, "device_ms": None}}, "counters": counters,
+           "builds": {}, "launches": {}}
+    monkeypatch.setattr(recorder, "record", lambda: rec)
+    ctx = types.SimpleNamespace(trace=types.SimpleNamespace(spans=lambda name: []), trace_steps=2)
+    assert metric.read(ctx) == want
+    assert metric.read(types.SimpleNamespace(trace=None, trace_steps=2)) is None
+
+
 @pytest.mark.parametrize("compiled", [["eig_stage"], []])
 def test_kernel_loads_are_recorded_without_a_profiler(monkeypatch, compiled):
     """`_build.load` with the build stubbed: a kernel compiled, or found
