@@ -20,6 +20,7 @@ import math
 import torch
 
 from ...ops.legendre import legendre_series_bcast
+from ...utils.profiling import span
 from . import eval as ev
 from .closures import Probes, u_closure
 from .types import DisortSolution
@@ -63,11 +64,31 @@ def nt_correction(sol: DisortSolution, tau, phi, antiderivative: bool = False):
     st_top = ev._take(front, l)
     scaled_thickness = back - front
 
-    # ---- TMS (reference pydisort.py:409-597) ----
+    # IMS averages per solve (reference pydisort.py:599-639)
+    omega_tau = sol.omega_arr * sol.tau_arr                  # (S, L)
+    sum1 = omega_tau.sum(dim=-1)
+    omega_avg = sum1 / sol.tau_arr.sum(dim=-1)
+    sum2 = (sol.f_arr * omega_tau).sum(dim=-1)
+    f_avg = sum2 / sum1
+    two_ell_p1 = 2.0 * torch.arange(cfg.nleg_all, dtype=dtype, device=device) + 1.0
+    leg_all = sol.weighted_leg_all / two_ell_p1
+    residue = torch.cat([sol.f_arr[..., None].expand(S, L, cfg.nleg), leg_all[..., cfg.nleg:]], dim=-1)
+    residue_avg = (residue * omega_tau[..., None]).sum(dim=-2) / sum2[:, None]   # (S, nleg_all)
+    nu_neg = _nu(-mu_pos, phi, -mu0, phi0)                   # (S, N, Nphi)
+
     nu = _nu(mu_arr, phi, -mu0, phi0)[:, None]               # (S, 1, 2N, Nphi)
-    # exact and truncated phase functions per layer at the beam angles
-    p_true = legendre_series_bcast(sol.weighted_leg_all[:, :, None, None, :], nu)    # (S, L, 2N, Nphi)
-    p_trun = legendre_series_bcast(sol.weighted_scaled_leg[:, :, None, None, :], nu)
+    with span("disort.eval.nt.series", device):
+        # The IMS residual phase function at the downward streams comes
+        # first: its small tensors make it launch-bound, and the batched
+        # entries do not synchronize between the solve and this correction,
+        # so its launches overlap the solve's kernels still queued.
+        ims_phase = legendre_series_bcast(
+            (two_ell_p1 * (2.0 * residue_avg - residue_avg**2))[:, None, None, :], nu_neg)   # (S, N, Nphi)
+        # exact and truncated phase functions per layer at the beam angles (TMS)
+        p_true = legendre_series_bcast(sol.weighted_leg_all[:, :, None, None, :], nu)    # (S, L, 2N, Nphi)
+        p_trun = legendre_series_bcast(sol.weighted_scaled_leg[:, :, None, None, :], nu)
+
+    # ---- TMS (reference pydisort.py:409-597) ----
     mathscr_B_layers = (
         (sol.scaled_omega_arr * I0_div_4pi[:, None])[:, :, None, None]
         * (mu0_t / (mu0_t + mu_arr))[:, None, :, None]
@@ -92,77 +113,67 @@ def nt_correction(sol: DisortSolution, tau, phi, antiderivative: bool = False):
     solution = mathscr_B.permute(0, 2, 1, 3) * tms_fac[..., None]   # (S, 2N, Ntau, Nphi)
 
     if L > 1:
-        # Cross-layer accumulation (reference :493-591).  The reference
-        # forms cumulative decay products and divides partial sums by
-        # them; in float32 the product exp(sum log_decay) underflows to 0
-        # for near-horizon streams (M_inv ~ 50 x layer thickness), turning
-        # the division into 0/0 = NaN.  Instead form the pairwise
-        # exponents CL_j - CL_l directly: every exponent is <= 0 by
-        # construction, so the terms underflow harmlessly to 0.  Costs an
-        # (S, N, L, L) tensor.
-        mu0_inv = (1.0 / mu0)[:, None, None]                 # (S, 1, 1)
-        exp_front_mu0 = torch.cat(
-            [torch.ones((S, 1), dtype=dtype, device=device), torch.exp(-front[:, 1:] / mu0_t)], dim=1)   # (S, L)
-        Bpos = mathscr_B_layers[:, :, :N]                    # (S, L, N, Nphi)
-        Bneg = mathscr_B_layers[:, :, N:]
+        with span("disort.eval.nt.layers", device):
+            # Cross-layer accumulation (reference :493-591).  The reference
+            # forms cumulative decay products and divides partial sums by
+            # them; in float32 the product exp(sum log_decay) underflows to 0
+            # for near-horizon streams (M_inv ~ 50 x layer thickness), turning
+            # the division into 0/0 = NaN.  Instead form the pairwise
+            # exponents CL_j - CL_l directly: every exponent is <= 0 by
+            # construction, so the terms underflow harmlessly to 0.  Costs an
+            # (S, N, L, L) tensor.
+            mu0_inv = (1.0 / mu0)[:, None, None]                 # (S, 1, 1)
+            exp_front_mu0 = torch.cat(
+                [torch.ones((S, 1), dtype=dtype, device=device), torch.exp(-front[:, 1:] / mu0_t)], dim=1)   # (S, L)
+            Bpos = mathscr_B_layers[:, :, :N]                    # (S, L, N, Nphi)
+            Bneg = mathscr_B_layers[:, :, N:]
 
-        log_decay = -scaled_thickness[:, None, :] * Mi       # (S, N, L)
-        CL = torch.cat([torch.zeros((S, N, 1), dtype=dtype, device=device),
-                        torch.cumsum(log_decay, dim=2)], dim=2)          # (S, N, L+1)
-        neg_cap = torch.full((), -88.0, dtype=dtype, device=device)   # exp(-88) ~ f32 tiny
-        if antiderivative:
-            integration_factor = mu_pos[:, :, None] / sol.scale_tau[:, None, :]   # (S, N, L)
-        jj = torch.arange(L, device=device)
+            log_decay = -scaled_thickness[:, None, :] * Mi       # (S, N, L)
+            CL = torch.cat([torch.zeros((S, N, 1), dtype=dtype, device=device),
+                            torch.cumsum(log_decay, dim=2)], dim=2)          # (S, N, L+1)
+            neg_cap = torch.full((), -88.0, dtype=dtype, device=device)   # exp(-88) ~ f32 tiny
+            if antiderivative:
+                integration_factor = mu_pos[:, :, None] / sol.scale_tau[:, None, :]   # (S, N, L)
+            jj = torch.arange(L, device=device)
 
-        # POS: contributions from layers below
-        # R_pos[k, l] = sum_{j >= l+1} term_j exp(CL_j - CL_{l+1})
-        thick_pos = scaled_thickness[:, None, :] * (Mi + mu0_inv)
-        em1_pos = -torch.expm1(-thick_pos)
-        if antiderivative:
-            em1_pos = integration_factor * em1_pos
-        layer_term_pos = em1_pos * exp_front_mu0[:, None, :]
-        Epos = CL[:, :, None, :L] - CL[:, :, 1:, None]       # (S, N, l, j)
-        mask_pos = jj[None, :] >= jj[:, None] + 1            # (l, j)
-        Rpos = torch.einsum(
-            "sklj,skj->skl", torch.exp(torch.where(mask_pos, Epos, neg_cap)) * mask_pos.to(dtype),
-            layer_term_pos)                                  # (S, N, L)
-        expfac_pos = torch.exp(Mi * (st - ev._take(back, l))[:, None])            # (S, N, Ntau)
-        addition_pos = ((ev._take(Rpos, l, dim=2) * expfac_pos)[..., None]
-                        * ev._take(Bpos, l).permute(0, 2, 1, 3))
+            # POS: contributions from layers below
+            # R_pos[k, l] = sum_{j >= l+1} term_j exp(CL_j - CL_{l+1})
+            thick_pos = scaled_thickness[:, None, :] * (Mi + mu0_inv)
+            em1_pos = -torch.expm1(-thick_pos)
+            if antiderivative:
+                em1_pos = integration_factor * em1_pos
+            layer_term_pos = em1_pos * exp_front_mu0[:, None, :]
+            Epos = CL[:, :, None, :L] - CL[:, :, 1:, None]       # (S, N, l, j)
+            mask_pos = jj[None, :] >= jj[:, None] + 1            # (l, j)
+            Rpos = torch.einsum(
+                "sklj,skj->skl", torch.exp(torch.where(mask_pos, Epos, neg_cap)) * mask_pos.to(dtype),
+                layer_term_pos)                                  # (S, N, L)
+            expfac_pos = torch.exp(Mi * (st - ev._take(back, l))[:, None])            # (S, N, Ntau)
+            addition_pos = ((ev._take(Rpos, l, dim=2) * expfac_pos)[..., None]
+                            * ev._take(Bpos, l).permute(0, 2, 1, 3))
 
-        # NEG: contributions from layers above
-        # R_neg[k, l] = sum_{j <= l-1} term_j exp(CL_l - CL_{j+1})
-        thick_neg = scaled_thickness[:, None, :] * (Mi - mu0_inv)
-        exp_x1 = torch.exp(-back / mu0_t)[:, None, :]
-        exp_x0 = torch.exp(log_decay) * exp_front_mu0[:, None, :]
-        em1_neg = torch.expm1(-thick_neg.abs())
-        layer_term_neg = torch.where(thick_neg >= 0, -em1_neg * exp_x1, em1_neg * exp_x0)
-        if antiderivative:
-            layer_term_neg = -integration_factor * layer_term_neg
-        Eneg = CL[:, :, :L, None] - CL[:, :, None, 1:]       # (S, N, l, j)
-        mask_neg = jj[None, :] <= jj[:, None] - 1
-        Rneg = torch.einsum(
-            "sklj,skj->skl", torch.exp(torch.where(mask_neg, Eneg, neg_cap)) * mask_neg.to(dtype),
-            layer_term_neg)
-        expfac_neg = torch.exp(Mi * (ev._take(front, l) - st)[:, None])
-        addition_neg = ((ev._take(Rneg, l, dim=2) * expfac_neg)[..., None]
-                        * ev._take(Bneg, l).permute(0, 2, 1, 3))
+            # NEG: contributions from layers above
+            # R_neg[k, l] = sum_{j <= l-1} term_j exp(CL_l - CL_{j+1})
+            thick_neg = scaled_thickness[:, None, :] * (Mi - mu0_inv)
+            exp_x1 = torch.exp(-back / mu0_t)[:, None, :]
+            exp_x0 = torch.exp(log_decay) * exp_front_mu0[:, None, :]
+            em1_neg = torch.expm1(-thick_neg.abs())
+            layer_term_neg = torch.where(thick_neg >= 0, -em1_neg * exp_x1, em1_neg * exp_x0)
+            if antiderivative:
+                layer_term_neg = -integration_factor * layer_term_neg
+            Eneg = CL[:, :, :L, None] - CL[:, :, None, 1:]       # (S, N, l, j)
+            mask_neg = jj[None, :] <= jj[:, None] - 1
+            Rneg = torch.einsum(
+                "sklj,skj->skl", torch.exp(torch.where(mask_neg, Eneg, neg_cap)) * mask_neg.to(dtype),
+                layer_term_neg)
+            expfac_neg = torch.exp(Mi * (ev._take(front, l) - st)[:, None])
+            addition_neg = ((ev._take(Rneg, l, dim=2) * expfac_neg)[..., None]
+                            * ev._take(Bneg, l).permute(0, 2, 1, 3))
 
-        solution = solution + torch.cat([addition_pos, addition_neg], dim=1)
+            solution = solution + torch.cat([addition_pos, addition_neg], dim=1)
 
-    # ---- IMS (reference pydisort.py:599-639); averages per solve ----
-    omega_tau = sol.omega_arr * sol.tau_arr                  # (S, L)
-    sum1 = omega_tau.sum(dim=-1)
-    omega_avg = sum1 / sol.tau_arr.sum(dim=-1)
-    sum2 = (sol.f_arr * omega_tau).sum(dim=-1)
-    f_avg = sum2 / sum1
-    two_ell_p1 = 2.0 * torch.arange(cfg.nleg_all, dtype=dtype, device=device) + 1.0
-    leg_all = sol.weighted_leg_all / two_ell_p1
-    residue = torch.cat([sol.f_arr[..., None].expand(S, L, cfg.nleg), leg_all[..., cfg.nleg:]], dim=-1)
-    residue_avg = (residue * omega_tau[..., None]).sum(dim=-2) / sum2[:, None]   # (S, nleg_all)
+    # ---- IMS (reference pydisort.py:599-639) ----
     scaled_mu0 = (mu0 / (1.0 - omega_avg * f_avg))[:, None]                      # (S, 1)
-
-    nu_neg = _nu(-mu_pos, phi, -mu0, phi0)                   # (S, N, Nphi)
     x = M_inv - 1.0 / scaled_mu0                             # (S, N)
     t = tau[:, None, :]                                      # (S, 1, Ntau)
     sm0 = scaled_mu0[..., None]
@@ -176,8 +187,6 @@ def nt_correction(sol: DisortSolution, tau, phi, antiderivative: bool = False):
             (t - 1.0 / x[..., None]) * torch.exp(-t / sm0) + torch.exp(-t * Mi) / x[..., None]
         ) / (mu_pos * scaled_mu0 * x)[..., None]             # (S, N, Ntau)
 
-    ims_phase = legendre_series_bcast(
-        (two_ell_p1 * (2.0 * residue_avg - residue_avg**2))[:, None, None, :], nu_neg)   # (S, N, Nphi)
     ofa = omega_avg * f_avg
     ims = ((I0_div_4pi * ofa**2 / (1.0 - ofa))[:, None, None] * ims_phase)[:, :, None, :] * chi[..., None]
 

@@ -20,6 +20,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 
 def _seed_log_coeffs(nmodes: int) -> np.ndarray:
     """log of |lam_m^m| prefactors: sqrt(prod_{k=1..m} (2k-1)/(2k))."""
@@ -115,8 +117,11 @@ def legendre_series(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def legendre_series_bcast(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``sum_l coeffs[..., l] P_l(x)`` by Clenshaw's recurrence, with
     ``coeffs[..., l]`` broadcast against ``x``: a series per batch element,
-    e.g. coeffs (S, L, 1, 1, ndeg) and x (S, 1, K, P) give (S, L, K, P)."""
+    e.g. coeffs (S, L, 1, 1, ndeg) and x (S, 1, K, P) give (S, L, K, P).
+    Counts its ``ndeg`` Clenshaw steps as ``legendre_terms`` while a
+    profiler runs."""
     ndeg = coeffs.shape[-1]
+    count("legendre_terms", ndeg)
     shape = torch.broadcast_shapes(coeffs.shape[:-1], x.shape)
     b1 = torch.zeros(shape, dtype=x.dtype, device=x.device)
     b2 = torch.zeros_like(b1)

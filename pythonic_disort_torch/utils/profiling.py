@@ -26,6 +26,10 @@ The spans (``device`` marks those timed on the device as well):
   (``models/disort/batch_solve.py``);
 - ``disort.eval.fluxes``, ``disort.eval.modes``, ``disort.eval.nt``
   (device): the batched evaluators (``parallel/batch.py``);
+  ``disort.eval.nt.series`` and ``disort.eval.nt.layers`` (device), inside
+  the NT correction: its three Legendre series (the exact and truncated
+  phase functions of the TMS, the IMS residual) and its cross-layer
+  accumulation (``models/disort/nt.py``);
 - ``disort.planck.emission``, ``disort.planck.rule``: the device Planck
   route's band integral, and the lookup of the band's cached quadrature
   rule, built on the host and copied on a miss (``ops/planck.py``);
@@ -37,7 +41,9 @@ The counters: ``h2d_bytes``, the bytes the port copies from host memory
 to a CUDA device; ``host_syncs``, each point where the port blocks the
 host on the device (each such pageable copy, each device value read on
 the host); ``planck_rule_hits`` and ``planck_rule_builds``, the Planck
-route's rule lookups served by its cache and those that built the rule.
+route's rule lookups served by its cache and those that built the rule;
+``legendre_terms``, the Clenshaw steps of the Legendre series
+(``ops/legendre.py::legendre_series_bcast``, one a moment of each series).
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ from pythonic_disort_torch.utils import profiling
 R, L, NQ, NF = 4, 5, 8, 4
 SOLVE = {"disort.entry", "disort.entry.copy", "disort.entry.legendre", "disort.solve.assemble", "disort.solve.eig",
          "disort.solve.operands", "disort.solve.bvp", "disort.solve.outputs"}
+NT = {"disort.eval.nt", "disort.eval.nt.series", "disort.eval.nt.layers"}
 
 
 @pytest.fixture(autouse=True)
@@ -76,8 +77,8 @@ def nt_general_call():
 
 CALLS = {"flux": (flux_call, SOLVE | {"disort.eval.fluxes"}),
          "planck": (planck_call, {"disort.planck.emission", "disort.planck.rule"}),
-         "nt_probes": (nt_probes_call, SOLVE | {"disort.eval.nt", "disort.eval.modes"}),
-         "nt_general": (nt_general_call, SOLVE | {"disort.eval.nt", "disort.eval.modes"})}
+         "nt_probes": (nt_probes_call, SOLVE | NT | {"disort.eval.modes"}),
+         "nt_general": (nt_general_call, SOLVE | NT | {"disort.eval.modes"})}
 
 
 def _profiled(fn):
