@@ -745,7 +745,7 @@ def phase_kernels(main_ops):
         bench_arrays(1, seed=5, nlayers=10, nquad=8), torch.float32, "cuda", nquad=8))
     eig_checks(*(x[..., :1000].contiguous() for x in small["eig"]), "eig n=4 B=1000 f32 (ragged)")
     eig_checks(At[..., :4096].double().contiguous(), Bt[..., :4096].double().contiguous(), "eig n=16 B=4096 f64")
-    # the 32-thread-per-matrix variant (16 < n <= 32), NQuad = 48
+    # the variant with 24-entry rows (16 < n <= 24), NQuad = 48
     eig_checks(*function_operands(24, 3000, 8, torch.float32, "cuda"), "eig n=24 B=3000 f32 (ragged)")
     eig_checks(*function_operands(24, 500, 9, torch.float64, "cuda"), "eig n=24 B=500 f64 (ragged)")
 

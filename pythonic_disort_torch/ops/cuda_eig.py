@@ -20,9 +20,11 @@ boundary-value coefficients adapt.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from ..utils.profiling import count
 from . import _build
 from .jacobi import default_sweeps, jacobi_eigh_lanes_plain
 
@@ -69,6 +71,17 @@ def _kernel(dtype):
     return fn
 
 
+@functools.cache
+def stage_rows(n: int) -> int:
+    """Row capacity of the kernel variant that ``csrc/eig_stage.cu``'s
+    dispatch launches at width n (16, 24 or 32; 0 where it refuses n),
+    asked of the built library, so that the rule lives in one place."""
+    fn = _build.load("eig_stage").eig_stage_rows
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(n)
+
+
 def _check(At: torch.Tensor, Bt: torch.Tensor) -> None:
     if At.device.type != "cuda" or Bt.device != At.device:
         raise ValueError("eig_stage_lanes: At and Bt must be CUDA tensors on one device")
@@ -94,7 +107,9 @@ def eig_stage_lanes(At: torch.Tensor, Bt: torch.Tensor):
     """Fused eigen stage on (n, n, B) lanes operands.
 
     CPU tensors take `eig_stage_lanes_plain`; CUDA tensors launch the
-    kernel (counted in ``eig_stage_lanes.launches``) or raise.
+    kernel (counted in ``eig_stage_lanes.launches``; a launch of the
+    variant with 24-entry rows also in the counter ``eig_stage_rows24``
+    while a profiler runs) or raise.
     """
     if At.device.type == "cpu" and Bt.device.type == "cpu":
         return eig_stage_lanes_plain(At, Bt)
@@ -110,6 +125,8 @@ def eig_stage_lanes(At: torch.Tensor, Bt: torch.Tensor):
     if err:
         raise RuntimeError(f"eig_stage kernel launch failed: CUDA error {err}")
     eig_stage_lanes.launches += 1
+    if stage_rows(n) == 24:
+        count("eig_stage_rows24")
     return K, V, Yr, Pr, Qr
 
 

@@ -3,35 +3,41 @@
     python3 -m pythonic_disort_torch.tools.check_eig
 
 The short loop after a change to the fused eigen-stage kernel: builds
-``eig_stage`` alone, prints what ptxas reports for its four variants
-(float32 and float64, n <= 16 and n <= 32) and, where ``cuobjdump`` is
-found, each variant's SASS instruction count.  Then it holds the kernel
-to the float64 plain stage with the order-free readings and limits of
-``chip_smoke.py`` (`EIG_TOL`, `eig_errors`, defined here):
+``eig_stage`` alone, prints what ptxas reports for its six variants
+(float32 and float64; rows of 16, 24 and 32 entries for n <= 16, 24 and
+32) and, where ``cuobjdump`` is found, each variant's SASS instruction
+count; a spill fails the check.  Then it holds the kernel to the float64
+plain stage with the order-free readings and limits of ``chip_smoke.py``
+(`EIG_TOL`, `eig_errors`, defined here):
 
 - on the main path's At and Bt (n = 16, B = 65 536), captured from
   ``solve_fluxes`` on ``bench.py``'s problem built by
   ``make_batched_problem`` in float64 on the CPU, so that no other kernel
   builds; in float32, and its first 4096 lanes in float64;
-- n = 4 at B = 1000 (float32, a 4-stream solve's operands), n = 24 at
-  B = 3000 (float32) and B = 500 (float64);
+- n = 4 at B = 1000 (float32, a 4-stream solve's operands); n = 18, 20,
+  22, 24 and 30 at ragged B in float32 and float64;
 - the kernel with 3 sweeps on the main-path operands, a control that the
   float32 limits must reject.
 
-Then it times the kernel with CUDA events in float32 at n = 16,
-B = 65 536 (the main path), n = 16, B = 2048 (the lane count of a
-64-layer column with 32 Fourier modes) and n = 24, B = 65 536 (the lanes
-of an NQuad = 48 chunk): through its wrapper, and through its C entry
-point with outputs allocated once, with its sweeps and with none (the
-stage around the Jacobi).  Exits nonzero if a check fails.
-``chip_smoke.py`` at the repository root is the full run.
+It reads the counter ``eig_stage_rows24`` over one traced launch at
+n = 24 and one at n = 16 (1 expected).  Then it times the kernel with
+CUDA events at `TIMED`: in float32 at n = 16, B = 65 536 (the main
+path), n = 16, B = 2048 (the lane count of a 64-layer column with 32
+Fourier modes) and n = 24, B = 65 536 (the lanes of an NQuad = 48
+chunk), and in float64 at n = 24, B = 322 560 (the ``cloud_radiance``
+step's lanes); through its wrapper, and through its C entry point with
+outputs allocated once, with its sweeps and with none (the stage around
+the Jacobi).  Exits nonzero if a check fails.  ``chip_smoke.py`` at the
+repository root is the full run.
 
     python3 -m pythonic_disort_torch.tools.check_eig --source OTHER.cu ...
 
 also builds each named source (a version of ``eig_stage.cu`` with the same
 C interface, e.g. an earlier commit's), prints its ptxas report, holds it
-to the same limits on the main-path operands and times it beside the
-kernel in turns (kernel, others, others, kernel), at the same shapes.
+to the same limits on the main-path operands, prints the largest absolute
+difference between its outputs and the kernel's at n = 24 in float32 and
+float64, and times it beside the kernel in turns (kernel, others,
+others, kernel), at the same shapes.
 """
 
 from __future__ import annotations
@@ -75,8 +81,11 @@ EIG_READINGS = {
     "r_p": "|Pr V - I|",
     "r_q": "|Qr Yr - I|",
 }
-# the float32 shapes timed: (label, n, B)
-TIMED = [("main path", 16, 65536), ("column", 16, 2048), ("NQuad=48 chunk", 24, 65536)]
+# the shapes timed: (label, n, B, dtype)
+TIMED = [("main path", 16, 65536, torch.float32), ("column", 16, 2048, torch.float32),
+         ("NQuad=48 chunk", 24, 65536, torch.float32), ("cloud step", 24, 322560, torch.float64)]
+# the ragged widths checked in both dtypes: (n, B) with B not a multiple of a block's lanes
+RAGGED = [(18, 1001), (20, 777), (22, 1503), (24, 2999), (30, 501)]
 
 # cuobjdump -sass: a function header, and one instruction line
 _SASS_FUNC = re.compile(r"Function : \S*?kernelI(\w+?)Ev")
@@ -137,7 +146,7 @@ def run_sweeps(At, Bt, sweeps, fn=None):
 def start_others(paths):
     """Start building other versions of ``eig_stage.cu`` with the kernels'
     flags, one nvcc each; returns a function that waits for them and gives
-    (float32 entry point, ptxas report) of each."""
+    ({dtype: entry point}, ptxas report) of each."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for path in paths:
@@ -153,10 +162,12 @@ def start_others(paths):
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {path}:\n{log}")
-            fn = ctypes.CDLL(str(out)).eig_stage_f32
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            built.append((fn, _PTXAS.findall(log)))
+            lib = ctypes.CDLL(str(out))
+            fns = {dtype: getattr(lib, name) for dtype, name in cuda_eig._FN.items()}
+            for fn in fns.values():
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            built.append((fns, _PTXAS.findall(log)))
         return built
     return finish
 
@@ -246,13 +257,41 @@ def sass_counts(name):
 
 
 def report_build():
-    """Print ptxas's report and the SASS counts of every variant."""
+    """Print ptxas's report and the SASS counts of every variant; returns
+    the bytes spilled over all of them."""
     entries = ptxas_entries("eig_stage")
     sass = sass_counts("eig_stage")
     for args, regs, stack, st, ld, smem in entries:
         count = "not available" if sass is None else sass.get(args, "not found")
         print(f"ptxas eig_stage<{args}>: {regs} registers, stack {stack} B, spill stores {st} B, "
               f"spill loads {ld} B, static shared {smem} B; SASS instructions {count}", flush=True)
+    return sum(st + ld for _, _, _, st, ld, _ in entries)
+
+
+def rows24_count(a24, b24, a16, b16):
+    """The counter ``eig_stage_rows24`` over one launch at n = 24 and one
+    at n = 16, under a profiler (the recorder's gate)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..utils import profiling
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        eig_stage_lanes(a24, b24)
+        eig_stage_lanes(a16, b16)
+        torch.cuda.synchronize()
+    return profiling.recorded()["counters"].get("eig_stage_rows24", 0)
+
+
+def max_differences(At, Bt, fn):
+    """Largest absolute difference of each output (K, V, Yr, Pr, Qr) of the
+    entry point ``fn`` (another build) from the kernel's, on At, Bt, and
+    whether all outputs are the same bits."""
+    _, mine = run_sweeps(At, Bt, jacobi_sweeps(At.dtype))
+    _, theirs = run_sweeps(At, Bt, jacobi_sweeps(At.dtype), fn)
+    bits = torch.int32 if At.dtype == torch.float32 else torch.int64
+    same = all(torch.equal(a.view(bits), b.view(bits)) for a, b in zip(mine, theirs))
+    return [(a.double() - b.double()).abs().max().item() for a, b in zip(mine, theirs)], same
 
 
 def check_case(label, At, Bt, Kp=None):
@@ -280,19 +319,24 @@ def main(argv=None):
     others = start_others(args.source)
     _build.build(["eig_stage"])
     print(f"built eig_stage in {time.perf_counter() - t0:.1f} s on {torch.cuda.get_device_name(0)}", flush=True)
-    report_build()
+    failed = 0
+    spilled = report_build()
+    failed += spilled > 0
+    if spilled:
+        print(f"FAILED: eig_stage spills {spilled} B", flush=True)
     f32, f64 = torch.float32, torch.float64
     A64, B64 = captured_operands(8, 64, 32, 42)
     At, Bt = A64.to("cuda", f32).contiguous(), B64.to("cuda", f32).contiguous()
     Kp = plain_K(At, Bt)
-    failed = 0
     failed += not check_case(f"main path n=16 B={At.shape[2]} f32", At, Bt, Kp)
     failed += not check_case("main path n=16 B=4096 f64",
                              A64[..., :4096].to("cuda").contiguous(), B64[..., :4096].to("cuda").contiguous())
     small = captured_operands(1, 10, 8, 5)
     failed += not check_case("n=4 B=1000 f32 (ragged)", *(x[..., :1000].to("cuda", f32).contiguous() for x in small))
-    failed += not check_case("n=24 B=3000 f32 (ragged)", *function_operands(24, 3000, 8, f32, "cuda"))
-    failed += not check_case("n=24 B=500 f64 (ragged)", *function_operands(24, 500, 9, f64, "cuda"))
+    for n, B in RAGGED:
+        for dtype in (f32, f64):
+            name = str(dtype).removeprefix("torch.float")
+            failed += not check_case(f"n={n} B={B} f{name} (ragged)", *function_operands(n, B, n + B, dtype, "cuda"))
     sweeps = jacobi_sweeps(f32) - 2
     err, outs = run_sweeps(At, Bt, sweeps)
     e = eig_errors(At, Bt, outs, Kp)
@@ -301,34 +345,46 @@ def main(argv=None):
     print(f"control, {sweeps} sweeps: sorted K rel {e['k_rel']:.3e}, |At Bt V - V K^2| {e['r_eig']:.3e}; "
           f"{'rejected by the float32 limits: ok' if rejected else 'FAILED: not rejected'}", flush=True)
 
-    wide = function_operands(24, 65536, 10, f32, "cuda")
-    ops = {16: (At, Bt), 24: wide}
-    versions = [("eig_stage.cu", cuda_eig._kernel(f32))]
-    for path, (fn, report) in zip(args.source, others()):
+    # n = 24 operands: 65 536 lanes, and those lanes repeated to the cloud step's 322 560 in float64
+    wide64 = function_operands(24, 65536, 10, f64, "cuda")
+    wide = tuple(x.float().contiguous() for x in wide64)
+    cloud = tuple(x.repeat(1, 1, 5)[..., :322560].contiguous() for x in wide64)
+    ops = {(16, f32): (At, Bt), (24, f32): wide, (24, f64): cloud}
+    rows24 = rows24_count(*wide, At[..., :2048].contiguous(), Bt[..., :2048].contiguous())
+    failed += rows24 != 1
+    print(f"counter eig_stage_rows24 over a traced launch at n=24 and one at n=16: {rows24} "
+          f"{'ok' if rows24 == 1 else 'FAILED (1 expected)'}", flush=True)
+    versions = [("eig_stage.cu", {dtype: cuda_eig._kernel(dtype) for dtype in cuda_eig._FN})]
+    for path, (fns, report) in zip(args.source, others()):
         for targs, stack, st, ld, regs, _ in report:
             print(f"ptxas {path}<{targs}>: {regs} registers, stack {stack} B, spill stores {st} B, "
                   f"spill loads {ld} B", flush=True)
-        err, outs = run_sweeps(At, Bt, jacobi_sweeps(f32), fn)
+        err, outs = run_sweeps(At, Bt, jacobi_sweeps(f32), fns[f32])
         bad = ["launch"] if err else beyond_limits(eig_errors(At, Bt, outs, Kp), f32)
         failed += bool(bad)
         print(f"{path}: main path n=16 B={At.shape[2]} f32 {'ok' if not bad else 'FAILED ' + ','.join(bad)}",
               flush=True)
-        versions.append((path, fn))
-    sweeps = jacobi_sweeps(f32)
+        for dtype, (a, b) in ((f32, wide), (f64, tuple(x[..., :65536] for x in wide64))):
+            diffs, same = max_differences(a, b, fns[dtype])
+            print(f"{path}: n=24 B=65536 {str(dtype).removeprefix('torch.')}, largest |difference| from "
+                  f"eig_stage.cu in K, V, Yr, Pr, Qr: {' '.join(f'{d:.3e}' for d in diffs)}; "
+                  f"{'the same bits' if same else 'not the same bits'}", flush=True)
+        versions.append((path, fns))
     stream = torch.cuda.current_stream().cuda_stream
-    for label, n, B in TIMED:
-        a, b = (x[..., :B].contiguous() for x in ops[n])
-        outs = (torch.empty((n, B), dtype=f32, device="cuda"), *(torch.empty_like(a) for _ in range(4)))
+    for label, n, B, dtype in TIMED:
+        a, b = (x[..., :B].contiguous() for x in ops[n, dtype])
+        outs = (torch.empty((n, B), dtype=dtype, device="cuda"), *(torch.empty_like(a) for _ in range(4)))
         ptrs = [x.data_ptr() for x in (a, b, *outs)]
         entry = lambda fn, sw: (lambda: fn(*ptrs, n, B, sw, stream))
+        reps = 20 if B <= 65536 else 5
         times, bare = {}, {}
-        for name, fn in versions + versions[::-1]:
-            times.setdefault(name, []).append(cuda_ms(entry(fn, sweeps), 20))
-            bare.setdefault(name, []).append(cuda_ms(entry(fn, 0), 20))
-        wrapper_ms = cuda_ms(lambda: eig_stage_lanes(a, b), 20)
+        for name, fns in versions + versions[::-1]:
+            times.setdefault(name, []).append(cuda_ms(entry(fns[dtype], jacobi_sweeps(dtype)), reps))
+            bare.setdefault(name, []).append(cuda_ms(entry(fns[dtype], 0), reps))
+        wrapper_ms = cuda_ms(lambda: eig_stage_lanes(a, b), reps)
         show = lambda d: "; ".join(f"{name} {' '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in d.items())
-        print(f"time {label} n={n} B={B} float32: eig_stage_lanes {wrapper_ms:.4f} ms; C entry: {show(times)}",
-              flush=True)
+        print(f"time {label} n={n} B={B} {str(dtype).removeprefix('torch.')}: eig_stage_lanes {wrapper_ms:.4f} ms; "
+              f"C entry: {show(times)}", flush=True)
         print(f"  the same without the sweeps (the stage around the Jacobi): {show(bare)}", flush=True)
     print(f"{failed} checks failed")
     return 1 if failed else 0

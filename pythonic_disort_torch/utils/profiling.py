@@ -43,7 +43,9 @@ host on the device (each such pageable copy, each device value read on
 the host); ``planck_rule_hits`` and ``planck_rule_builds``, the Planck
 route's rule lookups served by its cache and those that built the rule;
 ``legendre_terms``, the Clenshaw steps of the Legendre series
-(``ops/legendre.py::legendre_series_bcast``, one a moment of each series).
+(``ops/legendre.py::legendre_series_bcast``, one a moment of each series);
+``eig_stage_rows24``, the eigen-stage kernel's launches in its variant with
+24-entry rows (``ops/cuda_eig.py``, 16 < n <= 24).
 """
 
 from __future__ import annotations

@@ -172,39 +172,59 @@ def _kernel_partners(n, rounds):
     return np.array(out)
 
 
-def _chol_rows_model(a):
-    """The kernel's row Cholesky on (B, n, n) rows: step k reads column k
-    of the trailing matrix, takes one reciprocal of its pivot's square
-    root and updates every row below.  Returns L and 1 / diag(L)."""
+def _pad_rows(x, rows):
+    """(B, n, n) -> (B, rows, rows), identity rows and columns past n: a
+    matrix as the kernel holds it in rows of ``rows`` entries."""
+    B, n, _ = x.shape
+    out = np.broadcast_to(np.eye(rows), (B, rows, rows)).copy()
+    out[:, :n, :n] = x
+    return out
+
+
+def _chol_rows_model(a, n=None):
+    """The kernel's row Cholesky on (B, rows, rows) rows, of which the
+    first n are the matrix (rows past n identity rows): step k < n reads
+    column k of the trailing matrix, takes one reciprocal of its pivot's
+    square root and updates every row below.  Returns L and 1 / diag(L)
+    (1 past n)."""
     a = a.copy()
-    B, n, _ = a.shape
-    rows = np.arange(n)[None, :]
-    rdiag = np.empty((B, n))
+    B, rows, _ = a.shape
+    n = rows if n is None else n
+    ids = np.arange(rows)[None, :]
+    rdiag = np.ones((B, rows))
     for k in range(n):
         col = a[:, :, k].copy()
         d = np.sqrt(col[:, k])
         r = 1.0 / d
-        w = np.where(rows > k, a[:, :, k] * r[:, None] * r[:, None], 0.0)
+        w = np.where(ids > k, a[:, :, k] * r[:, None] * r[:, None], 0.0)
         a[:, :, k + 1:] -= w[:, :, None] * col[:, None, k + 1:]
         rdiag[:, k] = r
-        a[:, :, k] = np.where(rows > k, a[:, :, k] * r[:, None], np.where(rows == k, d[:, None], 0.0))
+        a[:, :, k] = np.where(ids > k, a[:, :, k] * r[:, None], np.where(ids == k, d[:, None], 0.0))
     return a, rdiag
 
 
 def _partial_sums(prod):
-    """Four partial sums over the last axis, entries m = 0, 1, 2, 3 mod 4."""
-    s = [prod[..., q::4].sum(-1) for q in range(4)]
+    """Four partial sums over the last axis, entries m = 0, 1, 2, 3 mod 4,
+    each accumulated in order of m, as the kernel's unrolled dot."""
+    s = [np.zeros(prod.shape[:-1]) for _ in range(4)]
+    for m in range(prod.shape[-1]):
+        s[m % 4] = s[m % 4] + prod[..., m]
     return (s[0] + s[1]) + (s[2] + s[3])
 
 
-def _sweeps_model(c, sweeps):
-    """The kernel's one-sided Jacobi on the rows of c (B, n, n): rolled
+def _sweeps_model(c, sweeps, n=None):
+    """The kernel's one-sided Jacobi on the rows of c (B, rows, rows), of
+    which the first n take part (the rest pair with themselves): rolled
     rounds with closed-form partners, the dot in four partial sums, the
-    cosine as rsqrt(1 + t^2) with two Newton steps.  Returns (K^2, Z^T)."""
-    B, n, _ = c.shape
-    w = np.broadcast_to(np.eye(n), c.shape).copy()
-    nrm = (c * c).sum(-1)
-    partners = _kernel_partners(n, n - 1)
+    norm summed in order, the cosine as rsqrt(1 + t^2) with two Newton
+    steps.  Returns (K^2, Z^T)."""
+    B, rows, _ = c.shape
+    n = rows if n is None else n
+    w = np.broadcast_to(np.eye(rows), c.shape).copy()
+    nrm = np.zeros((B, rows))
+    for m in range(rows):
+        nrm = nrm + c[..., m] * c[..., m]
+    partners = np.concatenate([_kernel_partners(n, n - 1), np.tile(np.arange(n, rows), (n - 1, 1))], axis=1)
     for _ in range(sweeps):
         for p in partners:
             pc = c[:, p, :]
@@ -225,26 +245,38 @@ def _sweeps_model(c, sweeps):
     return _partial_sums(c * c), w
 
 
-def _stage_model(At, Bt, sweeps):
-    """The kernel's eigen stage on lanes operands (n, n, B); returns
-    (K, V, Yr, Pr, Qr) in the lanes layout and C, the Cholesky factor of M."""
-    A, Bm = -np.moveaxis(At, 2, 0), -np.moveaxis(Bt, 2, 0)
-    L, rd = _chol_rows_model(Bm)
-    M = np.swapaxes(L, 1, 2) @ (A @ L)
-    C, _ = _chol_rows_model(M)
-    k2, w = _sweeps_model(C, sweeps)
+def _stage_model(At, Bt, sweeps, rows=None):
+    """The kernel's eigen stage on lanes operands (n, n, B), its matrices
+    held in rows of ``rows`` >= n entries (default n) with identity rows
+    past n, its sums in the kernel's order; returns (K, V, Yr, Pr, Qr) in
+    the lanes layout and C, the Cholesky factor of M."""
+    n, B = At.shape[0], At.shape[2]
+    rows = n if rows is None else rows
+    A = -np.moveaxis(At, 2, 0)
+    L, rd = _chol_rows_model(_pad_rows(-np.moveaxis(Bt, 2, 0), rows), n)
+    T1 = np.zeros((B, rows, rows))                  # (-At) L, zero rows past n
+    for j in range(n):
+        T1[:, :n, :] += A[:, :, j, None] * L[:, None, j, :]
+    M = np.zeros((B, rows, rows))                   # L^T T1, identity rows past n
+    for j in range(n):
+        M += L[:, j, :, None] * T1[:, None, j, :]
+    M[:, n:, :] = np.eye(rows)[n:]
+    C, _ = _chol_rows_model(M, n)
+    k2, w = _sweeps_model(C, sweeps, n)
     K = np.sqrt(np.maximum(k2, np.finfo(np.float64).tiny))
     Z = np.swapaxes(w, 1, 2)
-    LZ = L @ Z
+    LZ = np.zeros((B, rows, rows))
+    for k in range(n):
+        LZ += L[:, :, k, None] * Z[:, None, k, :]
     V = Z.copy()
-    for j in range(At.shape[0] - 1, -1, -1):
+    for j in range(n - 1, -1, -1):
         V[:, j, :] *= rd[:, j, None]
         V[:, :j, :] -= L[:, j, :j, None] * V[:, j, None, :]
     Yr = -LZ * (1.0 / K)[:, None, :]
     Pr = np.swapaxes(LZ, 1, 2)
     Qr = -K[:, :, None] * np.swapaxes(V, 1, 2)
-    lanes = lambda x: np.moveaxis(x, 0, -1)
-    return (K.T, *(lanes(x) for x in (V, Yr, Pr, Qr))), C
+    lanes = lambda x: np.moveaxis(x[:, :n, :n], 0, -1)
+    return (K[:, :n].T, *(lanes(x) for x in (V, Yr, Pr, Qr))), C[:, :n, :n]
 
 
 def _stage_operands(n, B, seed):
@@ -299,3 +331,17 @@ def test_kernel_stage_model_matches_lapack(n):
     Kp = lapack_stage(t(At), t(Bt))[0]
     e = eig_errors(t(At), t(Bt), tuple(t(x) for x in outs), Kp)
     assert not beyond_limits(e, torch.float64), e
+
+
+@pytest.mark.parametrize("n", [18, 20, 22, 24])
+def test_kernel_stage_model_rows_of_24_match_rows_of_32_bit_for_bit(n):
+    """At 16 < n <= 24 the kernel holds its rows in 24 entries where it
+    held them in 32: the padding past n (identity rows, zero columns) adds
+    only exact zeros to its sums, so the model's outputs in float64 at 9
+    sweeps are the same bits at either capacity."""
+    At, Bt = _stage_operands(n, 8, seed=80 + n)
+    sweeps = cuda_eig.jacobi_sweeps(torch.float64)
+    outs24, _ = _stage_model(At, Bt, sweeps, rows=24)
+    outs32, _ = _stage_model(At, Bt, sweeps, rows=32)
+    for name, a, b in zip(("K", "V", "Yr", "Pr", "Qr"), outs24, outs32):
+        assert a.shape == b.shape and np.array_equal(a, b), name
