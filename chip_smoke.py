@@ -385,8 +385,7 @@ ARTS_B_LIMITS = dict(u=1e-2, flux_up=1e-3, flux_down_diffuse=1e-3, flux_down_dir
 
 class Recorder:
     """Stands in for a kernel wrapper: keeps a copy of the operands of its
-    last call and passes them on.  The wrapper counts its launches on
-    whatever its module-level name holds, so the count is handed through."""
+    last call and passes them on."""
 
     def __init__(self, wrapper):
         self.wrapper, self.operands = wrapper, None
@@ -394,14 +393,6 @@ class Recorder:
     def __call__(self, *ops):
         self.operands = tuple(x.clone() if hasattr(x, "clone") else x for x in ops)
         return self.wrapper(*ops)
-
-    @property
-    def launches(self):
-        return self.wrapper.launches
-
-    @launches.setter
-    def launches(self, value):
-        self.wrapper.launches = value
 
 
 @contextmanager
@@ -418,18 +409,20 @@ def recording(module, name):
 def capture_kernel_inputs(problem, tau, phi=None):
     """Run the batched path once, keeping copies of its kernels' operands:
     ``eig`` (even N <= 32) or ``jacobi_wide`` (the congruence M, other N),
-    and ``bvp`` (2N <= 64; kernel 2 or 7) or ``blocktri`` (wider; kernel 6).
+    ``bvp`` (the operands of ``solve_bvp_fused``, any 2N; kernel 2 or 7 up
+    to 2N = 64) and ``blocktri`` (the blocks it assembles above 2N = 64;
+    kernel 6).
     With azimuths ``phi`` the path is ``solve_intensity`` with one probe per
     layer at ``tau``, else ``solve_fluxes``."""
     from pythonic_disort_torch import solve_fluxes, solve_intensity
     from pythonic_disort_torch.models.disort import batch_solve as bs_mod
-    from pythonic_disort_torch.ops import cuda_jacobi
+    from pythonic_disort_torch.ops import cuda_blocktri, cuda_jacobi
     from pythonic_disort_torch.ops import eig as eig_mod
 
     with recording(eig_mod, "eig_stage_lanes") as eig, \
             recording(cuda_jacobi, "jacobi_eigh_lanes_wide") as jacobi_wide, \
             recording(bs_mod, "solve_bvp_fused") as bvp, \
-            recording(bs_mod, "solve_block_tridiag_lanes_cuda") as blocktri:
+            recording(cuda_blocktri, "solve_block_tridiag_lanes_cuda") as blocktri:
         if phi is None:
             solve_fluxes(problem, tau)
         else:
@@ -701,14 +694,13 @@ def phase_device():
 
 def phase_build():
     from pythonic_disort_torch.ops import _build
-    from pythonic_disort_torch.tools.check_bvp import ptxas_entries
 
     t0 = time.perf_counter()
     _build.build(_build.kernel_sources())
     log(f"built {_build.kernel_sources()} in {time.perf_counter() - t0:.1f} s")
     # what ptxas reports for every kernel variant
     for name in _build.kernel_sources():
-        for args, regs, stack, st, ld, smem in ptxas_entries(name):
+        for args, regs, stack, st, ld, smem in _build.current(name).ptxas():
             log(f"  ptxas {name}<{args}>: {regs} registers, stack {stack} B, spill stores {st} B, "
                 f"spill loads {ld} B, static shared {smem} B")
 
@@ -721,12 +713,13 @@ def phase_kernels(main_ops):
     from pythonic_disort_torch.ops.blocktri import assemble_bvp_blocks, solve_block_tridiag_lanes
     from pythonic_disort_torch.ops.cuda_blocktri import (
         solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain, transposed_system)
+    from pythonic_disort_torch.ops import _build
     from pythonic_disort_torch.ops.cuda_eig import (
         eig_stage_lanes, eig_stage_lanes_plain, jacobi_sweeps)
-    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes, launch_wide
+    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes, jacobi_eigh_lanes_wide
     from pythonic_disort_torch.ops.jacobi import _round_robin_schedule, default_sweeps, jacobi_eigh_lanes_plain
     from pythonic_disort_torch.tools.check_blocktri import random_blocks
-    from pythonic_disort_torch.tools.check_bvp import ptxas_entries, spill_bytes
+    from pythonic_disort_torch.tools.check_bvp import spill_bytes
     from pythonic_disort_torch.tools.check_eig import EIG_TOL, function_operands, plain_K
     from pythonic_disort_torch.tools.check_jacobi import (
         DEFAULT_SWEEP_READINGS, constant_diagonal_matrices, scan_matrices, tied_matrices)
@@ -792,7 +785,7 @@ def phase_kernels(main_ops):
     bt_wide64 = tuple(x.double() for x in bt_wide)
     blocktri_checks(bt_wide64, f"blocktri {shape(bt_wide64)} f64 (NQuad=48 batched solve's blocks)")
     bt_ptxas = {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
-                for args, regs, stack, st, ld, _ in ptxas_entries("blocktri")}
+                for args, regs, stack, st, ld, _ in _build.current("blocktri").ptxas()}
     for args, r in bt_ptxas.items():
         log(f"  blocktri variant <{args}>: {r['registers']} registers, {r['spill_stores'] + r['spill_loads']} B spilled")
     check(all(r["spill_stores"] + r["spill_loads"] == 0 for r in bt_ptxas.values()),
@@ -846,7 +839,7 @@ def phase_kernels(main_ops):
     M_col = congruence(*eig_col.operands)
     jacobi_checks(M_col, f"jacobi n={M_col.shape[0]} B={M_col.shape[2]} f32 (64-layer column's congruence M)")
     jac_ptxas = {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
-                 for args, regs, stack, st, ld, _ in ptxas_entries("jacobi_eigh")}
+                 for args, regs, stack, st, ld, _ in _build.current("jacobi_eigh").ptxas()}
     for args, r in jac_ptxas.items():
         log(f"  jacobi_eigh variant <{args}>: {r['registers']} registers, {r['spill_stores'] + r['spill_loads']} B spilled")
     check(all(r["spill_stores"] + r["spill_loads"] == 0 for r in jac_ptxas.values()),
@@ -863,7 +856,7 @@ def phase_kernels(main_ops):
     jac_sweeps = default_sweeps(n, M.dtype)
     jac_ms = cuda_ms(lambda: jacobi_eigh_lanes(M, jac_sweeps), 20)
     jac_plain_ms = cuda_ms(lambda: jacobi_eigh_lanes_plain(M, jac_sweeps), 3)
-    jac_k5_ms = cuda_ms(lambda: launch_wide(M, jac_sweeps), 10)
+    jac_k5_ms = cuda_ms(lambda: jacobi_eigh_lanes_wide(M, jac_sweeps), 10)
     esz = At.element_size()
     def eig_bound_ms(n_, B_):
         return bound_ms((2 * n_ * n_ + 4 * n_ * n_ + n_) * B_ * esz, eig_flops(n_, jacobi_sweeps(At.dtype)) * B_,
@@ -894,7 +887,7 @@ def phase_kernels(main_ops):
         f"torch.linalg.eigh on the same M {eigh_ms:.3f} ms, bound {jac_bound:.4f} ms by {jac_by}: "
         f"{(2 * n * n + n) * B * esz / 1e9:.3f} GB, {jacobi_flops(n, jac_sweeps) * B:.3e} FLOP)")
     # kernel 4 at the other shapes the gradient paths give it, with kernel 5
-    # (launch_wide, not counted) and the library call on the same M
+    # and the library call on the same M
     jac_others = []
     for what, Mx, plain_reps in (("NQuad=48 chunk's congruence M", M48, 1),
                                  ("main-path congruence M", congruence(At.double(), Bt.double()), 0),
@@ -904,7 +897,7 @@ def phase_kernels(main_ops):
         name = str(Mx.dtype).removeprefix("torch.")
         sw = default_sweeps(n_, Mx.dtype)
         ms = cuda_ms(lambda: jacobi_eigh_lanes(Mx, sw), 10)
-        k5 = cuda_ms(lambda: launch_wide(Mx, sw), 5)
+        k5 = cuda_ms(lambda: jacobi_eigh_lanes_wide(Mx, sw), 5)
         lib = cuda_ms(lambda: in_chunks(lambda m: torch.linalg.eigh(m.permute(2, 0, 1)), Mx), 2)
         plain = cuda_ms(lambda: jacobi_eigh_lanes_plain(Mx, sw), plain_reps) if plain_reps else None
         bound, by = bound_ms((2 * n_ * n_ + n_) * B_ * Mx.element_size(), jacobi_flops(n_, sw) * B_, name)
@@ -1045,7 +1038,7 @@ def wide_jacobi_checks(At, label):
     float32 batch also logs the plain version's own float32 readings: the
     roundoff any float32 Jacobi leaves at this n."""
     import torch
-    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes_wide, launch_wide
+    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes_wide
     from pythonic_disort_torch.ops.jacobi import default_sweeps, jacobi_eigh_lanes_plain
     from pythonic_disort_torch.tools.check_jacobi import check_readings, readings
     from pythonic_disort_torch.tools.check_wide import wide_limits
@@ -1055,7 +1048,7 @@ def wide_jacobi_checks(At, label):
     lim = wide_limits(n, At.dtype)
     out = {}
     for storage, run in (("", lambda: jacobi_eigh_lanes_wide(At, sweeps)),
-                         (", device workspace", lambda: launch_wide(At, sweeps, workspace=True))):
+                         (", device workspace", lambda: jacobi_eigh_lanes_wide(At, sweeps, workspace=True))):
         w, V = run()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(w).all() and torch.isfinite(V).all()), f"{label}{storage}: outputs finite")
@@ -1076,12 +1069,11 @@ def phase_wide_kernels():
     workspace; then each timed at the batched NQuad=68 chunk's shape."""
     import torch
     from pythonic_disort_torch.ops.blocktri import solve_block_tridiag_lanes
-    from pythonic_disort_torch.ops.cuda_blocktri import launch_wide as blocktri_launch_wide
+    from pythonic_disort_torch.ops import _build
     from pythonic_disort_torch.ops.cuda_blocktri import solve_block_tridiag_lanes_wide
     from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes_wide
     from pythonic_disort_torch.ops.jacobi import default_sweeps, jacobi_eigh_lanes_plain
     from pythonic_disort_torch.tools.check_blocktri import random_blocks
-    from pythonic_disort_torch.tools.check_bvp import ptxas_entries
     from pythonic_disort_torch.tools.check_jacobi import scan_matrices
     from pythonic_disort_torch.tools.check_wide import JACOBI_TIMED
 
@@ -1110,7 +1102,7 @@ def phase_wide_kernels():
         o = random_blocks(L_, n_, B_, 100 * L_ + n_, dt[name])
         label = f"blocktri_wide L={L_} n={n_} B={B_} {name} (dense, NaN edge blocks)"
         blocktri_checks(o, label)
-        x = blocktri_launch_wide(*o, workspace=True)
+        x = solve_block_tridiag_lanes_wide(*o, workspace=True)
         torch.cuda.synchronize()
         _, rel = lane_rel_err(x, solve_block_tridiag_lanes(*(t.double().nan_to_num(0.0) for t in o)))
         tol = 1e-3 if dt[name] == torch.float32 else 1e-9
@@ -1159,7 +1151,7 @@ def phase_wide_kernels():
         log(f"  blocktri_wide L={L_} n={n_} B={B_} ({label}'s blocks, random dense): {ms:.4f} ms "
             f"(bound {bound:.4f} ms by {by})")
     ptxas = {name: {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
-                    for args, regs, stack, st, ld, _ in ptxas_entries(name)}
+                    for args, regs, stack, st, ld, _ in _build.current(name).ptxas()}
              for name in ("jacobi_eigh_wide", "blocktri_wide")}
     return [
         dict(name="jacobi_eigh_wide", route="cuda", source="pythonic_disort_torch/csrc/jacobi_eigh_wide.cu",
@@ -1197,7 +1189,8 @@ def phase_bvp_wide(ops48):
     from pythonic_disort_torch.ops.blocktri import assemble_bvp_blocks
     from pythonic_disort_torch.ops.cuda_blocktri import (
         solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain)
-    from pythonic_disort_torch.tools.check_bvp import ptxas_entries, random_operands
+    from pythonic_disort_torch.ops import _build
+    from pythonic_disort_torch.tools.check_bvp import random_operands
 
     log("phase 3: kernel 7 (the fused boundary-value solve at 34 <= 2N <= 64) against its plain version")
     f32, f64 = torch.float32, torch.float64
@@ -1229,7 +1222,7 @@ def phase_bvp_wide(ops48):
             log(f"  the plain version in float32 on the same operands: per-lane rel {rel:.3e}")
     grad_err = bvp_gradient_route_check(ops48, f"bvp gradient {shape(ops48)} f32 (NQuad=48 chunk's operands)")
     ptxas = {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
-             for args, regs, stack, st, ld, _ in ptxas_entries("bvp_fused_wide")}
+             for args, regs, stack, st, ld, _ in _build.current("bvp_fused_wide").ptxas()}
     for args, r in ptxas.items():
         log(f"  bvp_fused_wide variant <{args}>: {r['registers']} registers, "
             f"{r['spill_stores'] + r['spill_loads']} B spilled")
@@ -1268,35 +1261,16 @@ def phase_bvp_wide(ops48):
                 ptxas=ptxas)
 
 
-def wrappers():
-    from pythonic_disort_torch.ops.cuda_blocktri import (
-        solve_block_tridiag_lanes_cuda, solve_block_tridiag_lanes_wide, solve_bvp_fused, solve_bvp_fused_wide)
-    from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes
-    from pythonic_disort_torch.ops.cuda_jacobi import jacobi_eigh_lanes, jacobi_eigh_lanes_wide
-
-    return {"eig_stage": eig_stage_lanes, "bvp_fused": solve_bvp_fused, "blocktri": solve_block_tridiag_lanes_cuda,
-            "jacobi_eigh": jacobi_eigh_lanes, "jacobi_eigh_wide": jacobi_eigh_lanes_wide,
-            "blocktri_wide": solve_block_tridiag_lanes_wide, "bvp_fused_wide": solve_bvp_fused_wide}
-
-
-def reset_launches():
-    for w in wrappers().values():
-        w.launches = 0
-
-
-def read_launches():
-    return {name: w.launches for name, w in wrappers().items()}
-
-
 def phase_main_path(arrs, problem, tau, kernels):
     import torch
     from pythonic_disort_torch import solve_fluxes
+    from pythonic_disort_torch.utils import profiling
 
     log(f"phase 4: main path, {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}, NQuad={NQUAD}, f32, cuda")
-    reset_launches()
+    profiling.reset()
     out = solve_fluxes(problem, tau)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches in one chunk: {launches}")
     for k in kernels[:2]:
         k["launches"], k["launches_on"] = launches[k["name"]], "batched flux path, one chunk"
@@ -1409,6 +1383,7 @@ def phase_single_column(kernels):
     """The single-column ``pydisort`` in float32 on the card."""
     import torch
     from pythonic_disort_torch import pydisort, solve_fluxes
+    from pythonic_disort_torch.utils import profiling
 
     f32 = dict(dtype=torch.float32, device="cuda")
     by_name = {k["name"]: k for k in kernels}
@@ -1438,10 +1413,10 @@ def phase_single_column(kernels):
     kwargs = column_kwargs()
     tau = np.linspace(0.0, kwargs["tau_arr"][-1], 8)
     phi = np.array([0.0, 1.0, 4.0])
-    reset_launches()
+    profiling.reset()
     _, fu, fd, u0, u = pydisort(**kwargs, **f32)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches in one pydisort call: {launches}")
     kernels[2]["launches"], kernels[2]["launches_on"] = launches["blocktri"], "single-column path, one pydisort call"
     kernels[0]["launches_single_column"] = launches["eig_stage"]
@@ -1466,10 +1441,10 @@ def phase_single_column(kernels):
     log(f"  batched flux chunk at NQuad=48: {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}")
     arrs = bench_arrays(CHUNK_COLS, seed=13, nquad=48)
     problem, ptau = make_problem(arrs, torch.float32, "cuda", nquad=48)
-    reset_launches()
+    profiling.reset()
     out = solve_fluxes(problem, ptau)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches: {launches}")
     k7 = by_name["bvp_fused_wide"]
     k7["launches"], k7["launches_on"] = launches["bvp_fused_wide"], "batched flux path at NQuad=48, one chunk"
@@ -1564,14 +1539,15 @@ def phase_gradient(arrs, kernels, chunk_ms):
     configuration and the 64-layer column, each against float64 on the CPU."""
     import torch
     from pythonic_disort_torch.tools.check_jacobi import gradient_step
+    from pythonic_disort_torch.utils import profiling
 
     log(f"phase 6: gradient path, d loss / d omega, {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}, "
         f"NQuad={NQUAD}, f32, cuda")
     step = gradient_step(arrs, torch.float32, "cuda")
-    reset_launches()
+    profiling.reset()
     g = step()
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches in one gradient step: {launches}")
     check(launches["jacobi_eigh"] >= 1 and launches["bvp_fused"] == 1 and launches["blocktri"] >= 1
           and launches["eig_stage"] == 0 and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0
@@ -1638,12 +1614,12 @@ def phase_gradient(arrs, kernels, chunk_ms):
     gradient_step_nquad48(by_name)
 
     log(f"  single column, L={NLAYERS}, NQuad={NQUAD}, NFourier={NQUAD}: d sum(flux_up) / d omega")
-    reset_launches()
+    profiling.reset()
     t0 = time.perf_counter()
     gc = column_gradient(torch.float32, "cuda")
     torch.cuda.synchronize()
     col_ms = 1e3 * (time.perf_counter() - t0)
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches: {launches}; host clock {col_ms:.3f} ms (build_problem, solve, flux_up, backward)")
     check(launches["jacobi_eigh"] == 1 and launches["blocktri"] == 2 and launches["eig_stage"] == 0,
           "the column's gradient takes the Jacobi kernel once and the block-Thomas kernel twice")
@@ -1860,15 +1836,16 @@ def gradient_step_nquad48(by_name):
     from pythonic_disort_torch.tools.check_jacobi import gradient_step
     from pythonic_disort_torch.ops import cuda_jacobi
     from pythonic_disort_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_lanes_raw
+    from pythonic_disort_torch.utils import profiling
 
     log(f"  gradient step at NQuad=48: {CHUNK_COLS} columns x {NBANDS} bands, L={NLAYERS}, f32")
     arrs = bench_arrays(CHUNK_COLS, seed=13, nquad=48)
     step = gradient_step(arrs, torch.float32, "cuda", nquad=48)
-    reset_launches()
+    profiling.reset()
     with recording(cuda_jacobi, "jacobi_eigh_lanes") as rec:
         g = step()
         torch.cuda.synchronize()
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches in one NQuad=48 gradient step: {launches}")
     check(launches["jacobi_eigh"] >= 1 and launches["bvp_fused_wide"] == 1 and launches["blocktri"] >= 1
           and launches["eig_stage"] == 0 and launches["bvp_fused"] == 0 and launches["jacobi_eigh_wide"] == 0
@@ -1940,6 +1917,7 @@ def phase_widths(kernels):
     import torch
     from pythonic_disort_torch.tools.check_jacobi import gradient_step
     from pythonic_disort_torch import pydisort, solve_fluxes
+    from pythonic_disort_torch.utils import profiling
 
     f32 = dict(dtype=torch.float32, device="cuda")
     by_name = {k["name"]: k for k in kernels}
@@ -1950,10 +1928,10 @@ def phase_widths(kernels):
         tau = np.linspace(0.0, kwargs["tau_arr"][-1], 8)
         phi = np.array([0.0, 1.0, 4.0])
         label = f"NQuad={nquad} L={nlayers} NFourier={nfourier or nquad}"
-        reset_launches()
+        profiling.reset()
         _, fu, fd, u0, u = pydisort(**kwargs, **f32)
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = Counter(profiling.recorded()["launches"])
         log(f"  {label}: launches in one pydisort call: {launches}")
         per_call[nquad] = {k: launches[k] for k in ("jacobi_eigh_wide", "blocktri", "blocktri_wide")}
         wide = nquad > 64
@@ -2000,10 +1978,10 @@ def phase_widths(kernels):
     log(f"  batched flux call at NQuad={WIDE_NQUAD}: {WIDE_COLS} columns x {NBANDS} bands, L={NLAYERS}")
     arrs = bench_arrays(WIDE_COLS, seed=WIDE_SEED, nquad=WIDE_NQUAD)
     problem, ptau = make_problem(arrs, torch.float32, "cuda", nquad=WIDE_NQUAD)
-    reset_launches()
+    profiling.reset()
     out = solve_fluxes(problem, ptau)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches: {launches}")
     check(launches["jacobi_eigh_wide"] > 0 and launches["blocktri_wide"] > 0
           and launches["eig_stage"] == launches["blocktri"] == launches["bvp_fused"] == 0
@@ -2037,10 +2015,10 @@ def phase_widths(kernels):
     for nquad in ODD_BATCHED:
         arrs = bench_arrays(1, seed=WIDE_SEED + nquad, nquad=nquad)
         problem, ptau = make_problem(arrs, torch.float32, "cuda", nquad=nquad)
-        reset_launches()
+        profiling.reset()
         out = solve_fluxes(problem, ptau)
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = Counter(profiling.recorded()["launches"])
         log(f"  batched flux call at NQuad={nquad}: 1 column x {NBANDS} bands, L={NLAYERS}; launches: {launches}")
         check(launches["jacobi_eigh_wide"] > 0 and launches["bvp_fused"] > 0
               and launches["eig_stage"] == launches["blocktri"] == launches["blocktri_wide"] == 0
@@ -2054,10 +2032,10 @@ def phase_widths(kernels):
     # loses digits near the beam pole, phase 6)
     for nquad in (6, WIDE_NQUAD):
         arrs = rows(bench_arrays(1, seed=WIDE_SEED + nquad, nquad=nquad), WIDE_REF_ROWS)
-        reset_launches()
+        profiling.reset()
         g = gradient_step(arrs, torch.float64, "cuda", nquad=nquad)()
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = Counter(profiling.recorded()["launches"])
         log(f"  batched gradient at NQuad={nquad}, {WIDE_REF_ROWS} rows, float64; launches: {launches}")
         check(launches["jacobi_eigh_wide"] >= 1 and launches["eig_stage"] == launches["jacobi_eigh"] == 0
               and (launches["blocktri_wide"] == 2 if nquad > 64 else launches["blocktri"] >= 1),
@@ -2068,10 +2046,10 @@ def phase_widths(kernels):
     # and at NQuad = 48: the Jacobi kernel (n = 24) as the eigen stage,
     # kernel 7 forward and kernel 3 on the transposed blocks
     arrs = rows(bench_arrays(1, seed=WIDE_SEED + 48, nquad=48), WIDE_REF_ROWS)
-    reset_launches()
+    profiling.reset()
     g = gradient_step(arrs, torch.float64, "cuda", nquad=48)()
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  batched gradient at NQuad=48, {WIDE_REF_ROWS} rows, float64; launches: {launches}")
     check(launches["bvp_fused_wide"] == 1 and launches["blocktri"] >= 1 and launches["bvp_fused"] == 0
           and launches["eig_stage"] == 0 and launches["jacobi_eigh"] >= 1 and launches["jacobi_eigh_wide"] == 0,
@@ -2082,12 +2060,12 @@ def phase_widths(kernels):
 
     log(f"  single column, L={NLAYERS}, NQuad={WIDE_NQUAD}, flux only: d sum(flux_up) / d omega")
     col = dict(nquad=WIDE_NQUAD, only_flux=True)
-    reset_launches()
+    profiling.reset()
     t0 = time.perf_counter()
     gc = column_gradient(torch.float32, "cuda", **col)
     torch.cuda.synchronize()
     grad_ms = 1e3 * (time.perf_counter() - t0)
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches: {launches}; host clock {grad_ms:.3f} ms (build_problem, solve, flux_up, backward)")
     check(launches["jacobi_eigh_wide"] >= 1 and launches["blocktri_wide"] == 2
           and launches["eig_stage"] == launches["jacobi_eigh"] == launches["blocktri"] == 0,
@@ -2119,11 +2097,12 @@ def launched(run, label, kernels_on, kernels_off):
     """``run()`` once with the launch counts set to 0 just before it; checks
     that ``kernels_on`` launched and ``kernels_off`` did not."""
     import torch
+    from pythonic_disort_torch.utils import profiling
 
-    reset_launches()
+    profiling.reset()
     out = run()
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches in {label}: {launches}")
     check(all(launches[k] > 0 for k in kernels_on) and all(launches[k] == 0 for k in kernels_off),
           f"{label}: {', '.join(kernels_on)} launched, {', '.join(kernels_off)} not")
@@ -2137,11 +2116,13 @@ def phase_intensity(kernels, card):
     import torch
     from pythonic_disort_torch import (
         solve_actinic, solve_batched, solve_fluxes, solve_intensity, u0_at, u_at, u_corrected_at)
+    from pythonic_disort_torch.ops import _build
     from pythonic_disort_torch.parallel.batch import _check_probes_per_layer
+    from pythonic_disort_torch.utils import profiling
 
     t_phase = time.perf_counter()
     by_name = {k["name"]: k for k in kernels}
-    others = [k for k in wrappers() if k not in ("eig_stage", "bvp_fused")]
+    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused")]
     S = INT_COLS * NBANDS
     log(f"phase 8: batched intensity path, {INT_COLS} columns x {NBANDS} bands, L={NLAYERS}, NQuad={NQUAD}, "
         f"NFourier={INT_NFOURIER}, NT-corrected, {len(INT_PHI)} azimuths, f32, cuda ({card})")
@@ -2316,12 +2297,14 @@ def phase_longwave(kernels, card):
     interpolation and actinic closures of a golden, in float32 on the card."""
     import torch
     from pythonic_disort_torch import pydisort, solve_fluxes
+    from pythonic_disort_torch.ops import _build
     from pythonic_disort_torch.ops.planck import band_integrated_emission
     from pythonic_disort_torch.subroutines import generate_diff_act_flux_funcs, interpolate
+    from pythonic_disort_torch.utils import profiling
 
     t_phase = time.perf_counter()
     by_name = {k["name"]: k for k in kernels}
-    others = [k for k in wrappers() if k not in ("eig_stage", "bvp_fused")]
+    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused")]
     S, nref = CHUNK_COLS * NBANDS, REF_COLS * NBANDS
     log(f"phase 9: longwave chunk from temperatures, {CHUNK_COLS} columns x {NBANDS} bands "
         f"({LW_RANGE[0]:g}-{LW_RANGE[1]:g} cm^-1), L={NLAYERS}, NQuad={NQUAD}, NFourier=1, delta-M, no beam, "
@@ -2397,11 +2380,11 @@ def phase_longwave(kernels, card):
     # (c) ARTS through the port's subroutines
     log("  (c) 8ARTS_A: 101 pure-absorption atmospheres, 20 layers, NQuad=8, one pydisort call each")
     for dtype in (torch.float32, torch.float64):
-        reset_launches()
+        profiling.reset()
         t0 = time.perf_counter()
         surf, ref = arts_a_surface(dtype, "cuda")
         ms = 1e3 * (time.perf_counter() - t0) / len(ref)
-        launches = read_launches()
+        launches = Counter(profiling.recorded()["launches"])
         err = np.max(np.abs(surf - ref) / ref)
         log(f"    {dtype}: max relative error of the surface intensity {err:.3e}; {ms:.3f} ms per call "
             f"(pydisort and one u evaluation); launches {launches}")
@@ -2417,9 +2400,9 @@ def phase_longwave(kernels, card):
     log("  (c) 8ARTS_B0-2: 48 layers, NQuad=40, microwave, float32")
     for ifreq in range(3):
         kw = arts_b_inputs(ifreq)
-        reset_launches()
+        profiling.reset()
         got = arts_b_readings(kw, ifreq, torch.float32, "cuda")
-        launches = read_launches()
+        launches = Counter(profiling.recorded()["launches"])
         ms = best_ms(lambda: pydisort(**kw, dtype=torch.float32, device="cuda")[1](kw["tau_arr"][-1]), 1)
         log(f"    8ARTS_B{ifreq}: " + ", ".join(f"{k} {v:.3e}" for k, v in got.items())
             + f"; {ms:.3f} ms per call (solve and one flux_up, best of {REPS}); launches {launches}")
@@ -2466,6 +2449,7 @@ def phase_sweep(kernels, card):
     from pythonic_disort_torch import solve_fluxes
     from pythonic_disort_torch.parallel import SweepDriver
     from pythonic_disort_torch.tools.mesh_worker import problem_rows
+    from pythonic_disort_torch.utils import profiling
 
     t_phase = time.perf_counter()
     chunk = CHUNK_COLS * NBANDS
@@ -2495,9 +2479,9 @@ def phase_sweep(kernels, card):
             times = driver.run(part, depths, n_total)
             return driver, times, 1e3 * (time.perf_counter() - t0)
 
-        reset_launches()
+        profiling.reset()
         first, times, first_ms = sweep(True)
-        launches = read_launches()
+        launches = Counter(profiling.recorded()["launches"])
         log(f"  launches in the first overlapped sweep: {launches}; {first_ms:.3f} ms")
         check(launches["eig_stage"] == launches["bvp_fused"] == n_chunks
               and sum(launches.values()) == 2 * n_chunks,
@@ -2650,6 +2634,7 @@ def phase_mesh(problem, tau, kernels, card, sweep_out):
     from pythonic_disort_torch.parallel import (
         SweepDriver, count_collectives, default_mesh, initialize_distributed, shard_batch, solve_fluxes_sharded)
     from pythonic_disort_torch.tools import mesh_worker
+    from pythonic_disort_torch.utils import profiling
 
     t_phase = time.perf_counter()
     log(f"phase 11: the mesh ({card})")
@@ -2660,10 +2645,10 @@ def phase_mesh(problem, tau, kernels, card, sweep_out):
     local, tau_s = shard_batch(problem, mesh), shard_batch(tau, mesh)
     check(local.tau_arr.data_ptr() == problem.tau_arr.data_ptr() and tau_s.data_ptr() == tau.data_ptr(),
           "shard_batch at world 1 hands on views: no copy")
-    reset_launches()
+    profiling.reset()
     outs, counts = count_collectives(solve_fluxes_sharded, local, tau_s, mesh)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = Counter(profiling.recorded()["launches"])
     log(f"  launches: {launches}; collectives: {counts}")
     check(launches["eig_stage"] == 1 and launches["bvp_fused"] == 1 and sum(launches.values()) == 2,
           "solve_fluxes_sharded launches kernels 1 and 2 once each, no other")
@@ -2687,7 +2672,7 @@ def phase_mesh(problem, tau, kernels, card, sweep_out):
     log(f"  (b) {MESH_RANKS} gloo ranks sharing the card ({card})")
     raises(lambda: initialize_distributed("127.0.0.1:1", MESH_RANKS, 0, backend="nccl"), ValueError,
            f"initialize_distributed with NCCL for {MESH_RANKS} ranks on one card")
-    check(all(_build._target(n).exists() for n in _build.kernel_sources()),
+    check(all(_build.library_path(n).exists() for n in _build.kernel_sources()),
           "phase 2 built every kernel: the ranks load them and build none")
     work = Path(tempfile.mkdtemp(prefix="mesh-", dir=Path(__file__).resolve().parent / "build"))
     try:

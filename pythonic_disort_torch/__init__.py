@@ -3,18 +3,29 @@
 The discrete-ordinates radiative-transfer solver on an NVIDIA H100, on
 two paths: the batched solve over columns x bands (`solve_fluxes`,
 `solve_intensity`, `solve_actinic`) and the single-column solve behind
-the drop-in `pydisort` API.  The JAX
-package beside it is the reference; this package imports neither JAX nor
-it.  Four stages are CUDA kernels written for Hopper (``csrc/``), built
-with nvcc at first use: the fused eigen stage (both paths), the fused
-boundary-value solve (batched path, NQuad <= 32), the generic
-block-Thomas solve (single-column path; batched path for NQuad 48, 64;
-the transposed solve of every gradient) and the batched two-sided Jacobi
-eigendecomposition (the eigen stage of every gradient).  Both paths take
-first-order reverse-mode gradients through ``torch.autograd``.  The
-reference-compatible ``subroutines`` namespace holds the host utilities
-(Planck and source polynomials, BDRF helpers, mu interpolation, actinic
-fluxes); ``ops.planck`` integrates Planck bands on the device.
+the drop-in `pydisort` API.  The JAX package beside it is the
+reference; this package imports neither JAX nor it.  Four stages run
+seven CUDA kernels written for Hopper (``csrc/``), built with nvcc at
+first use and launched through ``ops/_build.py``:
+
+- the fused eigen stage at even N <= 32 (kernel 1, ``eig_stage.cu``;
+  both paths);
+- the fused boundary-value solve of the batched path: kernel 2
+  (``bvp_fused.cu``) at 2N <= 32, kernel 7 (``bvp_fused_wide.cu``) at
+  34 <= 2N <= 64;
+- the generic block-Thomas solve: kernel 3 (``blocktri.cu``) at n <= 64,
+  kernel 6 (``blocktri_wide.cu``) above; the single-column path, the
+  batched path above 2N = 64 and the transposed solve of every gradient;
+- the batched two-sided Jacobi eigendecomposition: kernel 4
+  (``jacobi_eigh.cu``) at even n <= 32, kernel 5 (``jacobi_eigh_wide.cu``)
+  at odd n and n > 32; the eigen stage of every gradient and of the
+  widths kernel 1 does not take.
+
+Both paths take first-order reverse-mode gradients through
+``torch.autograd``.  The reference-compatible ``subroutines`` namespace
+holds the host utilities (Planck and source polynomials, BDRF helpers,
+mu interpolation, actinic fluxes); ``ops.planck`` integrates Planck
+bands on the device.
 """
 
 import torch

@@ -13,13 +13,11 @@ crosses the lane dimension:
   matmuls over the Legendre contraction;
 - the eigen stage is `ops.eig.disort_eigh_lanes` (CUDA kernel 1 at even
   N <= 32; at other N its Cholesky + Jacobi route, CUDA kernel 5);
-- the BVP is `ops.cuda_blocktri.solve_bvp_fused` (CUDA kernel 2 at
-  2N <= 32, kernel 7 at 34 <= 2N <= 64), fed the eigenvector blocks,
-  decays and bottom boundary rows; wider systems, where the JAX package
-  runs its jnp path, have their blocks assembled
-  (`ops.blocktri.assemble_bvp_blocks`) and solved by the generic
-  block-Thomas solve (`ops.cuda_blocktri.solve_block_tridiag_lanes_cuda`,
-  kernel 6 there);
+- the BVP is `ops.cuda_blocktri.solve_bvp_fused` at every 2N, fed the
+  eigenvector blocks, decays and bottom boundary rows; it routes by width
+  (CUDA kernel 2 at 2N <= 32, kernel 7 at 34 <= 2N <= 64; wider systems,
+  where the JAX package runs its jnp path, have their blocks assembled
+  and solved by the generic block-Thomas solve, kernel 6 there);
 - the flux quadrature ``(mu W) @ G C`` is folded into per-layer tables
   (``fvec_*``, ``fb_*``, ``fi_*``), so ``G`` is never materialized and
   ``GC`` only for intensity output (``only_flux=False``);
@@ -33,8 +31,7 @@ import math
 
 import torch
 
-from ...ops.blocktri import assemble_bvp_blocks
-from ...ops.cuda_blocktri import FUSED_BLOCK_MAX, solve_block_tridiag_lanes_cuda, solve_bvp_fused
+from ...ops.cuda_blocktri import solve_bvp_fused
 from ...ops.eig import disort_eigh_lanes
 from ...ops.legendre import normalized_assoc_legendre
 from .solve import _power_ladder, _tables, affine_transform_poly_coeffs, iso_particular_tensor, iso_poly_eval
@@ -272,12 +269,8 @@ def _solve(problem: DisortProblem, probe_tau=None):
             rhs_t = torch.cat([rhs_top, rhs_bot], dim=0).reshape(1, 2 * N, NFS)
 
     with span("disort.solve.bvp", device):
-        if 2 * N <= FUSED_BLOCK_MAX:
-            C_t = solve_bvp_fused(Gt.contiguous(), decay_t.contiguous(),
-                                  Bt_rows.contiguous(), rhs_t.contiguous())   # (L, 2N, NFS)
-        else:
-            C_t = solve_block_tridiag_lanes_cuda(
-                *assemble_bvp_blocks(Gt, decay_t, Bt_rows), rhs_t.contiguous())
+        C_t = solve_bvp_fused(Gt.contiguous(), decay_t.contiguous(),
+                              Bt_rows.contiguous(), rhs_t.contiguous())   # (L, 2N, NFS)
 
     with span("disort.solve.outputs", device):
         # ---- intensity modes at one probe per layer, contracted in lanes ----

@@ -1,4 +1,4 @@
-"""The two block-Thomas CUDA kernels and their plain PyTorch versions.
+"""The block-Thomas CUDA kernels and their plain PyTorch versions.
 
 Counterpart of ``pythonic_disort_tpu/ops/pallas_blocktri.py``.
 
@@ -9,7 +9,11 @@ partial pivoting, at the 2N <= 64 the TPU kernel takes: ``csrc/bvp_fused.cu``
 (kernel 2) at 2N <= 32, ``csrc/bvp_fused_wide.cu`` (kernel 7,
 `solve_bvp_fused_wide`) at 34 <= 2N <= 64.  Their plain version assembles
 the blocks (`blocktri.assemble_bvp_blocks`) and runs the pivoted
-block-Thomas loop (`blocktri.solve_block_tridiag_lanes`).
+block-Thomas loop (`blocktri.solve_block_tridiag_lanes`).  Above 2N = 64,
+where the JAX package runs its jnp path, `solve_bvp_fused` assembles the
+blocks and hands them to `solve_block_tridiag_lanes_cuda`: the batched
+solve calls `solve_bvp_fused` at every 2N, and the choice of route by
+width lives here alone.
 
 `solve_block_tridiag_lanes_cuda` (for ``solve_block_tridiag_lanes_pallas``):
 the same pivoted block Thomas on explicit dense lower/diag/upper blocks.
@@ -18,6 +22,12 @@ kernel takes, and ``csrc/blocktri_wide.cu`` (kernel 6,
 `solve_block_tridiag_lanes_wide`) above, where the JAX package runs its
 jnp block Thomas.  Their plain version is
 `blocktri.solve_block_tridiag_lanes`.
+
+Every kernel is launched through `_build.launch` after the operands are
+checked (CUDA tensors on one device, float32 or float64, the shapes, the
+sizes the kernel takes, contiguous, no forward-mode tangent); each
+launch is counted under its source's name (``bvp_fused``,
+``bvp_fused_wide``, ``blocktri``, ``blocktri_wide``).
 
 The solution of either system is unique, so a kernel and its plain
 version are compared directly on x.
@@ -33,8 +43,6 @@ the plain versions.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 from torch.autograd.function import once_differentiable
 
@@ -47,19 +55,9 @@ def solve_bvp_fused_plain(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     return solve_block_tridiag_lanes(*assemble_bvp_blocks(Gt, decay_t, bt_rows), rhs_t)
 
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 FUSED_BLOCK_MAX = 64    # largest block size 2N of the fused solve (csrc/bvp_fused_wide.cu)
 FUSED_NARROW_MAX = 32   # largest block size 2N of csrc/bvp_fused.cu
 BLOCK_MAX = 64          # largest block size n of csrc/blocktri.cu
-
-
-def _kernel(name, dtype):
-    """The C entry point ``<name>_f32`` / ``<name>_f64`` of ``csrc/<name>.cu``;
-    the sources it serves take six pointers, three sizes and the stream."""
-    fn = getattr(_build.load(name), f"{name}_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(name, operands: dict, want: dict) -> None:
@@ -69,7 +67,7 @@ def _check(name, operands: dict, want: dict) -> None:
     ops = tuple(operands.values())
     if any(x.device.type != "cuda" or x.device != ops[0].device for x in ops):
         raise ValueError(f"{name}: all operands must be CUDA tensors on one device")
-    if ops[0].dtype not in _SUFFIX or any(x.dtype != ops[0].dtype for x in ops):
+    if ops[0].dtype not in _build.SUFFIX or any(x.dtype != ops[0].dtype for x in ops):
         raise TypeError(f"{name}: float32 or float64 operands expected, got {[x.dtype for x in ops]}")
     for label, x in operands.items():
         if tuple(x.shape) != want[label]:
@@ -81,11 +79,7 @@ def _check(name, operands: dict, want: dict) -> None:
 
 
 def _launch(name, operands, scratch, x, sizes) -> torch.Tensor:
-    err = _kernel(name, x.dtype)(
-        *(t.data_ptr() for t in (*operands, scratch, x)), *sizes,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _build.launch(name, x.dtype, x.device, *(t.data_ptr() for t in (*operands, scratch, x)), *sizes)
     return x
 
 
@@ -114,16 +108,14 @@ def _bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
         return solve_bvp_fused_wide(*ops)
     # [H_l | g_l] stack written by the forward sweep, read by the backward
     HG = torch.empty((L, n2, n2 // 2 + 1, B), dtype=Gt.dtype, device=Gt.device)
-    x = _launch("bvp_fused", ops, HG, torch.empty_like(rhs_t), (L, n2, B))
-    solve_bvp_fused.launches += 1
-    return x
+    return _launch("bvp_fused", ops, HG, torch.empty_like(rhs_t), (L, n2, B))
 
 
 def solve_bvp_fused_wide(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     """Launch kernel 7 (``csrc/bvp_fused_wide.cu``) on CUDA operands of
     even 34 <= 2N <= 64 (see `solve_bvp_fused` for shapes); returns x
     (L, 2N, B).  No gradient rule: `solve_bvp_fused` sends that range
-    here.  Counted in ``solve_bvp_fused_wide.launches``."""
+    here."""
     ops = (Gt, decay_t, bt_rows, rhs_t)
     if Gt.dim() == 4 and Gt.shape[1] <= FUSED_NARROW_MAX:
         raise ValueError(f"solve_bvp_fused_wide: kernel 7 takes 2N > {FUSED_NARROW_MAX} (smaller blocks go "
@@ -132,12 +124,7 @@ def solve_bvp_fused_wide(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     # [H_l | g_l] stack, lane-major: written by the forward sweep, read by
     # the backward
     HG = torch.empty((B, L, n2, n2 // 2 + 1), dtype=Gt.dtype, device=Gt.device)
-    x = _launch("bvp_fused_wide", ops, HG, torch.empty_like(rhs_t), (L, n2, B))
-    solve_bvp_fused_wide.launches += 1
-    return x
-
-
-solve_bvp_fused_wide.launches = 0
+    return _launch("bvp_fused_wide", ops, HG, torch.empty_like(rhs_t), (L, n2, B))
 
 
 def _check_blocks(name, lower_t, diag_t, upper_t, rhs_t):
@@ -164,56 +151,29 @@ def _blocktri(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
     # [W_l | g_l] stack, lane-major: written by the forward sweep, read by
     # the backward
     WG = torch.empty((B, L, n, n + 1), dtype=diag_t.dtype, device=diag_t.device)
-    x = _launch("blocktri", ops, WG, torch.empty_like(rhs_t), (L, n, B))
-    solve_block_tridiag_lanes_cuda.launches += 1
-    return x
+    return _launch("blocktri", ops, WG, torch.empty_like(rhs_t), (L, n, B))
 
 
-def _wide_kernel(dtype):
-    """The entry point of ``csrc/blocktri_wide.cu`` and its workspace query."""
-    lib = _build.load("blocktri_wide")
-    fn = getattr(lib, f"blocktri_wide_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    ws = getattr(lib, f"blocktri_wide_workspace_{_SUFFIX[dtype]}")
-    ws.argtypes = [ctypes.c_int] * 2
-    ws.restype = ctypes.c_size_t
-    return fn, ws
-
-
-def launch_wide(lower_t, diag_t, upper_t, rhs_t, workspace: bool = False) -> torch.Tensor:
-    """Launch kernel 6 through its C entry point; not counted.  A device
-    workspace holds the augmented block where shared memory cannot, or
-    always with ``workspace=True``."""
+def solve_block_tridiag_lanes_wide(lower_t, diag_t, upper_t, rhs_t, workspace: bool = False) -> torch.Tensor:
+    """Launch kernel 6 on explicit blocks (CUDA tensors, any n >= 1; see
+    `solve_block_tridiag_lanes_cuda` for shapes); returns x (L, n, B).
+    No gradient rule: `solve_block_tridiag_lanes_cuda` sends n > 64 here,
+    forward and backward.  A device workspace holds the augmented block
+    where shared memory cannot, or always with ``workspace=True`` (the
+    checks' way to run the workspace body)."""
     ops = (lower_t, diag_t, upper_t, rhs_t)
     L, n, B = _check_blocks("solve_block_tridiag_lanes_wide", *ops)
-    fn, ws_bytes = _wide_kernel(diag_t.dtype)
     esz = diag_t.element_size()
-    nbytes = ws_bytes(n, B) or (B * n * (2 * n + 1) * esz if workspace else 0)
+    nbytes = (_build.entry("blocktri_wide", diag_t.dtype, "workspace")(n, B)
+              or (B * n * (2 * n + 1) * esz if workspace else 0))
     ws = torch.empty(nbytes // esz, dtype=diag_t.dtype, device=diag_t.device) if nbytes else None
     # [W_l | g_l] stack, lane-major: written by the forward sweep, read by
     # the next layer and the backward
     WG = torch.empty((B, L, n, n + 1), dtype=diag_t.dtype, device=diag_t.device)
     x = torch.empty_like(rhs_t)
-    err = fn(*(t.data_ptr() for t in (*ops, WG, x)), None if ws is None else ws.data_ptr(), L, n, B,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"blocktri_wide kernel launch failed: CUDA error {err}")
+    _build.launch("blocktri_wide", diag_t.dtype, diag_t.device, *(t.data_ptr() for t in (*ops, WG, x)),
+                  None if ws is None else ws.data_ptr(), L, n, B)
     return x
-
-
-def solve_block_tridiag_lanes_wide(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
-    """Launch kernel 6 on explicit blocks (CUDA tensors, any n >= 1; see
-    `solve_block_tridiag_lanes_cuda` for shapes); returns x (L, n, B).
-    No gradient rule: `solve_block_tridiag_lanes_cuda` sends n > 64 here,
-    forward and backward.  Counted in
-    ``solve_block_tridiag_lanes_wide.launches``."""
-    x = launch_wide(lower_t, diag_t, upper_t, rhs_t)
-    solve_block_tridiag_lanes_wide.launches += 1
-    return x
-
-
-solve_block_tridiag_lanes_wide.launches = 0
 
 
 def transposed_system(lower_t, diag_t, upper_t):
@@ -277,17 +237,19 @@ def solve_bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
 
     ``Gt`` (L, 2N, 2N, B) eigenvector blocks, ``decay_t`` (L, N, B)
     homogeneous decays, ``bt_rows`` (N, 2N, B) bottom boundary rows,
-    ``rhs_t`` (L, 2N, B).  CPU tensors take `solve_bvp_fused_plain`; CUDA
-    tensors launch kernel 2 at 2N <= 32 (counted in
-    ``solve_bvp_fused.launches``) and kernel 7 at 34 <= 2N <= 64
-    (`solve_bvp_fused_wide`), or raise.  Differentiable in every operand: the backward assembles
-    the blocks and solves the transposed system with
-    `solve_block_tridiag_lanes_cuda`'s kernel.
+    ``rhs_t`` (L, 2N, B).  Up to 2N = 64, CPU tensors take
+    `solve_bvp_fused_plain`; CUDA tensors launch kernel 2 at 2N <= 32 and
+    kernel 7 at 34 <= 2N <= 64 (`solve_bvp_fused_wide`), or raise; the
+    backward assembles the blocks and solves the transposed system with
+    `solve_block_tridiag_lanes_cuda`'s kernel.  Wider systems, where the
+    JAX package runs its jnp path, have their blocks assembled
+    (`blocktri.assemble_bvp_blocks`) and solved by
+    `solve_block_tridiag_lanes_cuda` (kernel 6 on the card), forward and
+    backward.  Differentiable in every operand.
     """
+    if Gt.dim() == 4 and Gt.shape[1] > FUSED_BLOCK_MAX:
+        return solve_block_tridiag_lanes_cuda(*assemble_bvp_blocks(Gt, decay_t, bt_rows), rhs_t)
     return _BvpFused.apply(Gt, decay_t, bt_rows, rhs_t)
-
-
-solve_bvp_fused.launches = 0
 
 
 def solve_block_tridiag_lanes_cuda(lower_t, diag_t, upper_t, rhs_t) -> torch.Tensor:
@@ -297,12 +259,8 @@ def solve_block_tridiag_lanes_cuda(lower_t, diag_t, upper_t, rhs_t) -> torch.Ten
     blocks, ``rhs_t`` (L, n, B); ``lower_t[0]`` and ``upper_t[-1]`` are
     ignored and may hold anything.  CPU tensors take
     `blocktri.solve_block_tridiag_lanes`; CUDA tensors launch kernel 3 at
-    n <= 64 (counted in ``solve_block_tridiag_lanes_cuda.launches``) and
-    kernel 6 above (`solve_block_tridiag_lanes_wide`), or raise.
-    Differentiable in every operand: the backward solves the transposed
-    system with the same kernel.
+    n <= 64 and kernel 6 above (`solve_block_tridiag_lanes_wide`), or
+    raise.  Differentiable in every operand: the backward solves the
+    transposed system with the same kernel.
     """
     return _BlockTridiag.apply(lower_t, diag_t, upper_t, rhs_t)
-
-
-solve_block_tridiag_lanes_cuda.launches = 0

@@ -19,7 +19,6 @@ boundary-value coefficients adapt.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -61,31 +60,18 @@ def eig_stage_lanes_plain(At: torch.Tensor, Bt: torch.Tensor):
     return K.T.contiguous(), lanes(V), lanes(Yr), lanes(Pr), lanes(Qr)
 
 
-_FN = {torch.float32: "eig_stage_f32", torch.float64: "eig_stage_f64"}
-
-
-def _kernel(dtype):
-    fn = getattr(_build.load("eig_stage"), _FN[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 @functools.cache
 def stage_rows(n: int) -> int:
     """Row capacity of the kernel variant that ``csrc/eig_stage.cu``'s
     dispatch launches at width n (16, 24 or 32; 0 where it refuses n),
     asked of the built library, so that the rule lives in one place."""
-    fn = _build.load("eig_stage").eig_stage_rows
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(n)
+    return _build.entry("eig_stage", part="rows")(n)
 
 
 def _check(At: torch.Tensor, Bt: torch.Tensor) -> None:
     if At.device.type != "cuda" or Bt.device != At.device:
         raise ValueError("eig_stage_lanes: At and Bt must be CUDA tensors on one device")
-    if At.dtype not in _FN or Bt.dtype != At.dtype:
+    if At.dtype not in _build.SUFFIX or Bt.dtype != At.dtype:
         raise TypeError(f"eig_stage_lanes: float32 or float64 expected, got {At.dtype}/{Bt.dtype}")
     if At.dim() != 3 or At.shape[0] != At.shape[1] or Bt.shape != At.shape:
         raise ValueError(f"eig_stage_lanes: (n, n, B) operands expected, got {tuple(At.shape)}, {tuple(Bt.shape)}")
@@ -107,9 +93,9 @@ def eig_stage_lanes(At: torch.Tensor, Bt: torch.Tensor):
     """Fused eigen stage on (n, n, B) lanes operands.
 
     CPU tensors take `eig_stage_lanes_plain`; CUDA tensors launch the
-    kernel (counted in ``eig_stage_lanes.launches``; a launch of the
-    variant with 24-entry rows also in the counter ``eig_stage_rows24``
-    while a profiler runs) or raise.
+    kernel (counted under ``eig_stage``; a launch of the variant with
+    24-entry rows also in the counter ``eig_stage_rows24`` while a
+    profiler runs) or raise.
     """
     if At.device.type == "cpu" and Bt.device.type == "cpu":
         return eig_stage_lanes_plain(At, Bt)
@@ -117,17 +103,8 @@ def eig_stage_lanes(At: torch.Tensor, Bt: torch.Tensor):
     n, _, B = At.shape
     K = torch.empty((n, B), dtype=At.dtype, device=At.device)
     V, Yr, Pr, Qr = (torch.empty_like(At) for _ in range(4))
-    err = _kernel(At.dtype)(
-        At.data_ptr(), Bt.data_ptr(), K.data_ptr(), V.data_ptr(), Yr.data_ptr(),
-        Pr.data_ptr(), Qr.data_ptr(), n, B, jacobi_sweeps(At.dtype),
-        torch.cuda.current_stream(At.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"eig_stage kernel launch failed: CUDA error {err}")
-    eig_stage_lanes.launches += 1
+    _build.launch("eig_stage", At.dtype, At.device, At.data_ptr(), Bt.data_ptr(), K.data_ptr(), V.data_ptr(),
+                  Yr.data_ptr(), Pr.data_ptr(), Qr.data_ptr(), n, B, jacobi_sweeps(At.dtype))
     if stage_rows(n) == 24:
         count("eig_stage_rows24")
     return K, V, Yr, Pr, Qr
-
-
-eig_stage_lanes.launches = 0

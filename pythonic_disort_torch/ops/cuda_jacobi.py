@@ -13,44 +13,28 @@ kernel 4 steers its rotations by a carried diagonal, as the TPU kernel
 does; kernel 5 reads them from the matrix, as the plain version does.
 All turn a tied pair by 45 degrees, where the TPU kernel skips it for the
 round.
+
+Each wrapper checks its operand (a CUDA tensor, float32 or float64,
+(n, n, B), contiguous, no forward-mode tangent) and launches through
+`_build.launch`, counted under ``jacobi_eigh`` and ``jacobi_eigh_wide``.
+The A/B tools also call `jacobi_eigh_lanes_wide` at even n <= 32, as the
+baseline kernel 4 has to beat.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
 
 from . import _build
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 NARROW_MAX = 32    # kernel 4 takes even n up to this
-
-
-def _kernel(dtype):
-    fn = getattr(_build.load("jacobi_eigh"), f"jacobi_eigh_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _wide_kernel(dtype):
-    """The entry point of ``csrc/jacobi_eigh_wide.cu`` and its workspace query."""
-    lib = _build.load("jacobi_eigh_wide")
-    fn = getattr(lib, f"jacobi_eigh_wide_{_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    ws = getattr(lib, f"jacobi_eigh_wide_workspace_{_SUFFIX[dtype]}")
-    ws.argtypes = [ctypes.c_int] * 2
-    ws.restype = ctypes.c_size_t
-    return fn, ws
 
 
 def _check(name: str, At: torch.Tensor) -> None:
     if At.device.type != "cuda":
         raise ValueError(f"{name}: At must be a CUDA tensor")
-    if At.dtype not in _SUFFIX:
+    if At.dtype not in _build.SUFFIX:
         raise TypeError(f"{name}: float32 or float64 expected, got {At.dtype}")
     if At.dim() != 3 or At.shape[0] != At.shape[1] or At.shape[0] < 1 or At.shape[2] < 1:
         raise ValueError(f"{name}: (n, n, B) operand with n, B >= 1 expected, got {tuple(At.shape)}")
@@ -60,9 +44,8 @@ def _check(name: str, At: torch.Tensor) -> None:
 
 
 def jacobi_eigh_lanes(At: torch.Tensor, sweeps: int):
-    """Launch the kernel on ``At`` (n, n, B), a CUDA tensor; returns
-    ``(w (n, B), V (n, n, B))``, unsorted.  Counted in
-    ``jacobi_eigh_lanes.launches``."""
+    """Launch kernel 4 on ``At`` (n, n, B), a CUDA tensor of even
+    n <= 32; returns ``(w (n, B), V (n, n, B))``, unsorted."""
     _check("jacobi_eigh_lanes", At)
     n, _, B = At.shape
     if n % 2 or n > NARROW_MAX:
@@ -71,15 +54,9 @@ def jacobi_eigh_lanes(At: torch.Tensor, sweeps: int):
                          f"jacobi_eigh_lanes_wide), got {tuple(At.shape)}")
     w = torch.empty((n, B), dtype=At.dtype, device=At.device)
     V = torch.empty_like(At)
-    err = _kernel(At.dtype)(At.data_ptr(), w.data_ptr(), V.data_ptr(), n, B, sweeps,
-                            torch.cuda.current_stream(At.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"jacobi_eigh kernel launch failed: CUDA error {err}")
-    jacobi_eigh_lanes.launches += 1
+    _build.launch("jacobi_eigh", At.dtype, At.device, At.data_ptr(), w.data_ptr(), V.data_ptr(), n, B, sweeps)
     return w, V
 
-
-jacobi_eigh_lanes.launches = 0
 
 _slot_tables: dict = {}
 
@@ -105,32 +82,19 @@ def slot_table(n: int, device) -> torch.Tensor:
     return table
 
 
-def launch_wide(At: torch.Tensor, sweeps: int, workspace: bool = False):
-    """Launch kernel 5 through its C entry point; not counted.  A device
-    workspace holds A and V where shared memory cannot, or always with
-    ``workspace=True``."""
+def jacobi_eigh_lanes_wide(At: torch.Tensor, sweeps: int, workspace: bool = False):
+    """Launch kernel 5 on ``At`` (n, n, B), a CUDA tensor, any n >= 1;
+    returns ``(w (n, B), V (n, n, B))``, unsorted.  A device workspace
+    holds A and V where shared memory cannot, or always with
+    ``workspace=True`` (the checks' way to run the workspace body)."""
     _check("jacobi_eigh_lanes_wide", At)
     n, _, B = At.shape
-    fn, ws_bytes = _wide_kernel(At.dtype)
     w = torch.empty((n, B), dtype=At.dtype, device=At.device)
     V = torch.empty_like(At)
     slots = slot_table(n, At.device)
-    nbytes = ws_bytes(n, B) or (B * 2 * n * n * At.element_size() if workspace else 0)
+    nbytes = (_build.entry("jacobi_eigh_wide", At.dtype, "workspace")(n, B)
+              or (B * 2 * n * n * At.element_size() if workspace else 0))
     ws = torch.empty(nbytes // At.element_size(), dtype=At.dtype, device=At.device) if nbytes else None
-    err = fn(At.data_ptr(), w.data_ptr(), V.data_ptr(), slots.data_ptr(), n, B, slots.shape[0], sweeps,
-             None if ws is None else ws.data_ptr(), torch.cuda.current_stream(At.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"jacobi_eigh_wide kernel launch failed: CUDA error {err}")
+    _build.launch("jacobi_eigh_wide", At.dtype, At.device, At.data_ptr(), w.data_ptr(), V.data_ptr(),
+                  slots.data_ptr(), n, B, slots.shape[0], sweeps, None if ws is None else ws.data_ptr())
     return w, V
-
-
-def jacobi_eigh_lanes_wide(At: torch.Tensor, sweeps: int):
-    """Launch kernel 5 on ``At`` (n, n, B), a CUDA tensor, any n >= 1;
-    returns ``(w (n, B), V (n, n, B))``, unsorted.  Counted in
-    ``jacobi_eigh_lanes_wide.launches``."""
-    out = launch_wide(At, sweeps)
-    jacobi_eigh_lanes_wide.launches += 1
-    return out
-
-
-jacobi_eigh_lanes_wide.launches = 0

@@ -50,7 +50,7 @@ import torch
 
 from ..ops import _build
 from ..ops.blocktri import assemble_bvp_blocks, solve_block_tridiag_lanes
-from ..ops.cuda_blocktri import _kernel, _wide_kernel, solve_block_tridiag_lanes_cuda, transposed_system
+from ..ops.cuda_blocktri import solve_block_tridiag_lanes_cuda, transposed_system
 
 # (L, n, B): every variant of the kernel (n <= 16, <= 32, <= 48, <= 64) at
 # ragged B, L = 1 and odd n
@@ -180,18 +180,19 @@ def cuda_ms(fn, reps):
 
 
 def time_versions(versions, cases, reps=5, fused=False):
-    """Each entry of ``versions`` (label, entry points by dtype, wide) on
-    the operands of each case (label, ops; `entry_call`'s ``fused``), in
-    turns: versions, then the same in reverse order."""
+    """Each `_build.Build` of ``versions`` (a kernel-3 version, or kernel 6,
+    or kernel 7 with ``fused``) on the operands of each case (label, ops),
+    through its C entry, in turns: versions, then the same in reverse
+    order."""
     for label, ops in cases:
         L, n, _, B = ops[0].shape
         dtype = ops[0].dtype
         times = {}
-        for name, fns, wide in versions + versions[::-1]:
-            call, _ = entry_call(fns[dtype], ops, wide, fused)
+        for version in versions + versions[::-1]:
+            call, _ = entry_call(version.entry(dtype), ops, version.name == "blocktri_wide", fused)
             if call():
-                raise RuntimeError(f"{name}: launch failed at L={L} n={n} B={B}")
-            times.setdefault(name, []).append(cuda_ms(call, reps))
+                raise RuntimeError(f"{version.label}: launch failed at L={L} n={n} B={B}")
+            times.setdefault(version.label, []).append(cuda_ms(call, reps))
         print(f"time {label} L={L} n={n} B={B} {str(dtype)[6:]} (C entry, ms):", flush=True)
         for name, ts in times.items():
             print(f"    {' '.join(f'{t:.4f}' for t in ts)}  {name}", flush=True)
@@ -204,27 +205,21 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("check_blocktri: CUDA is not available", file=sys.stderr)
         return 2
-    from .check_bvp import ptxas_entries
-    from .check_wide import print_ptxas, start_builds
+    from .check_wide import print_ptxas
 
     t0 = time.perf_counter()
-    pending = start_builds([(path, Path(path).read_text()) for path in args.source], "blocktri")
     names = ["blocktri", "blocktri_wide"]
-    jobs = [(name, *_build._start(name)) for name in names]
+    pending = _build.start(names, [(path, "blocktri", Path(path).read_text()) for path in args.source])
     cases = captured_cases()
     print(f"captured {len(cases)} sets of blocks on the CPU in float64 in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name, started, out in jobs:
-        _build._finish(name, started, out)
     built = pending()
     print(f"built {names} and {len(built)} other versions in {time.perf_counter() - t0:.1f} s", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"{smi.stdout.strip() or 'nvidia-smi failed'}; torch {torch.__version__}", flush=True)
-    for name in names:
-        print_ptxas(name, [(a, r, sk, st, ld) for a, r, sk, st, ld, _ in ptxas_entries(name)])
-    for label, _, entries in built:
-        print_ptxas(label, entries)
+    for version in [*map(_build.current, names), *built]:
+        print_ptxas(version.label, version.ptxas())
 
     failed = 0
 
@@ -236,9 +231,9 @@ def main(argv=None):
 
     def check_all(what, ops, tol):
         held(f"blocktri.cu {what}", lane_rel_err(ops), tol)
-        for name, fns, _ in built:
-            call, x = entry_call(fns[ops[1].dtype], ops)
-            held(f"{name} {what}", float("inf") if call() else lane_rel(x, ops), tol)
+        for version in built:
+            call, x = entry_call(version.entry(ops[1].dtype), ops)
+            held(f"{version.label} {what}", float("inf") if call() else lane_rel(x, ops), tol)
 
     for dtype in (torch.float32, torch.float64):
         dt = str(dtype)[6:]
@@ -255,15 +250,13 @@ def main(argv=None):
             L, n, _, B = ops[1].shape
             check_all(f"{label} L={L} n={n} B={B} {str(dtype)[6:]}", ops, REAL_TOL[dtype])
             timed.append((label, ops))
-    tree = {dtype: _kernel("blocktri", dtype) for dtype in (torch.float32, torch.float64)}
-    wide = {dtype: _wide_kernel(dtype)[0] for dtype in (torch.float32, torch.float64)}
+    wide = _build.current("blocktri_wide")
     for label, ops in timed:
-        call, x = entry_call(wide[ops[1].dtype], ops, wide=True)
+        call, x = entry_call(wide.entry(ops[1].dtype), ops, wide=True)
         L, n, _, B = ops[1].shape
         held(f"blocktri_wide.cu (kernel 6) {label} L={L} n={n} B={B} {str(ops[1].dtype)[6:]}",
              float("inf") if call() else lane_rel(x, ops), REAL_TOL[ops[1].dtype])
-    time_versions([("blocktri.cu", tree, False)] + [(name, fns, False) for name, fns, _ in built]
-                  + [("blocktri_wide.cu (kernel 6)", wide, True)], timed)
+    time_versions([_build.current("blocktri"), *built, wide], timed)
     print(f"{failed} checks failed")
     return 1 if failed else 0
 

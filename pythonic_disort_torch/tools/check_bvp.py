@@ -40,7 +40,6 @@ repository root is the full run.
 from __future__ import annotations
 
 import functools
-import re
 import subprocess
 import sys
 import time
@@ -54,25 +53,9 @@ from ..ops.cuda_blocktri import (
     FUSED_NARROW_MAX, solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain)
 from .check_blocktri import cuda_ms, entry_call, time_versions
 
-# ptxas's report of one kernel variant: the template arguments are the
-# mangled part (f/d for float/double, then LiNE for each integer N)
-_PTXAS = re.compile(
-    r"Compiling entry function '\S*?kernelI(\w+?)EvP\S*' for.*?(\d+) bytes stack frame, (\d+) bytes spill stores, "
-    r"(\d+) bytes spill loads.*?Used (\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", re.S)
-
-
-def ptxas_entries(name):
-    """(template arguments, registers, stack B, spill stores B, spill loads B,
-    static shared B) of every kernel variant in ``csrc/<name>.cu``'s build
-    report."""
-    report = _build._target(name).with_suffix(".log").read_text()
-    return [(args, int(regs), int(stack), int(st), int(ld), int(smem or 0))
-            for args, stack, st, ld, regs, smem in _PTXAS.findall(report)]
-
-
 def spill_bytes(name):
     """Bytes spilled (stores plus loads) over every variant of ``name``."""
-    return sum(st + ld for _, _, _, st, ld, _ in ptxas_entries(name))
+    return sum(v.spill_stores + v.spill_loads for v in _build.current(name).ptxas())
 
 
 def bench_arrays(ncols, seed=42, nlayers=64, nquad=32, nbands=128):
@@ -188,15 +171,12 @@ def ab_versions(built, cases):
     """The tree's kernel 7 and the ``--source`` versions on each case
     (label, ops): per-lane error through their C entries (printed), then
     `check_blocktri.time_versions` in turns."""
-    from ..ops.cuda_blocktri import _kernel
-
-    versions = [("bvp_fused_wide.cu", {dt: _kernel("bvp_fused_wide", dt) for dt in (torch.float32, torch.float64)},
-                 False)] + [(label, fns, False) for label, fns, _ in built]
+    versions = [_build.current("bvp_fused_wide"), *built]
     for label, ops in cases:
-        for name, fns, _ in versions:
-            call, x = entry_call(fns[ops[0].dtype], ops, fused=True)
+        for version in versions:
+            call, x = entry_call(version.entry(ops[0].dtype), ops, fused=True)
             rel = float("inf") if call() else lane_rel(x, ops)
-            print(f"  {name} {label} {str(ops[0].dtype)[6:]}: per-lane rel {rel:.3e}", flush=True)
+            print(f"  {version.label} {label} {str(ops[0].dtype)[6:]}: per-lane rel {rel:.3e}", flush=True)
     time_versions(versions, cases, fused=True)
 
 
@@ -211,19 +191,16 @@ def main(argv=None):
         return 2
     from pathlib import Path
 
-    from .check_wide import print_ptxas, start_builds
+    from .check_wide import print_ptxas
 
     names = ("bvp_fused", "bvp_fused_wide", "blocktri")
     t0 = time.perf_counter()
-    pending = start_builds([(path, Path(path).read_text()) for path in args.source], "bvp_fused_wide")
-    jobs = [(name, *_build._start(name)) for name in names]
+    pending = _build.start(names, [(path, "bvp_fused_wide", Path(path).read_text()) for path in args.source])
     # the real solves' operands, captured on the CPU while nvcc runs
     for args in CAPTURED:
         _captured_f64(*args)
     print(f"captured {len(CAPTURED)} sets of operands on the CPU in float64 in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name, started, out in jobs:
-        _build._finish(name, started, out)
     built = pending()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -231,14 +208,12 @@ def main(argv=None):
           flush=True)
     failed = 0
     for name in names:
-        for args, regs, stack, st, ld, smem in ptxas_entries(name):
-            print(f"ptxas {name}<{args}>: {regs} registers, stack {stack} B, spill stores {st} B, "
-                  f"spill loads {ld} B, static shared {smem} B", flush=True)
+        print_ptxas(name, _build.current(name).ptxas())
         if name != "blocktri" and spill_bytes(name):
             failed += 1
             print(f"{name}: a variant spills: FAILED", flush=True)
-    for label, _, entries in built:
-        print_ptxas(label, entries)
+    for version in built:
+        print_ptxas(version.label, version.ptxas())
     f32, f64 = torch.float32, torch.float64
     main_ops = captured_operands(8, 64, 32, 42, f32)
     chunk48 = captured_operands(8, 64, 48, 11, f32)

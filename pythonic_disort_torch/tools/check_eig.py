@@ -37,14 +37,14 @@ C interface, e.g. an earlier commit's), prints its ptxas report, holds it
 to the same limits on the main-path operands, prints the largest absolute
 difference between its outputs and the kernel's at n = 24 in float32 and
 float64, and times it beside the kernel in turns (kernel, others,
-others, kernel), at the same shapes.
+others, kernel), at the same shapes: through ``eig_stage_lanes`` with
+the version launched in place of the tree's (``_build.swapped``), and
+through its C entry.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import re
 import shutil
 import subprocess
@@ -55,11 +55,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import _build, cuda_eig
+from ..ops import _build
 from ..ops.cuda_eig import eig_stage_lanes, eig_stage_lanes_plain, jacobi_sweeps
 from ..ops.quadrature import double_gauss
 from .check_blocktri import cuda_ms
-from .check_bvp import _PTXAS, bench_problem, ptxas_entries
+from .check_bvp import bench_problem
 
 # Eigen-stage limits, per reading.  Sorted K and the eigen residual measure
 # the Jacobi convergence: on an H100 at the main-path shape (n=16,
@@ -128,48 +128,19 @@ def beyond_limits(e, dtype):
     return [k for k in EIG_READINGS if not e[k] < tol[k]]
 
 
-def run_sweeps(At, Bt, sweeps, fn=None):
+def run_sweeps(At, Bt, sweeps, version=None):
     """The kernel with ``sweeps`` Jacobi sweeps instead of its fixed count,
-    called through its C entry point (not counted as a launch), or through
-    ``fn``, the same entry point of another build.  Returns the entry's
-    error code and (K, V, Yr, Pr, Qr)."""
+    called through its C entry point (not counted as a launch) of the
+    tree's build, or of ``version``, another `_build.Build`.  Returns the
+    entry's error code and (K, V, Yr, Pr, Qr)."""
     n, _, B = At.shape
     outs = (torch.empty((n, B), dtype=At.dtype, device=At.device),
             *(torch.empty_like(At) for _ in range(4)))
-    err = (fn or cuda_eig._kernel(At.dtype))(
+    err = (version or _build.current("eig_stage")).entry(At.dtype)(
         At.data_ptr(), Bt.data_ptr(), *(x.data_ptr() for x in outs), n, B, sweeps,
         torch.cuda.current_stream(At.device).cuda_stream)
     torch.cuda.synchronize()
     return err, outs
-
-
-def start_others(paths):
-    """Start building other versions of ``eig_stage.cu`` with the kernels'
-    flags, one nvcc each; returns a function that waits for them and gives
-    ({dtype: entry point}, ptxas report) of each."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for path in paths:
-        src = Path(path).read_bytes()
-        digest = hashlib.sha256(src + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = _build.BUILD_DIR / f"other-{Path(path).stem}-{digest}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.REPORT_FLAGS, "-o", str(out), str(path)]
-        jobs.append((path, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-
-    def finish():
-        built = []
-        for path, out, proc in jobs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {path}:\n{log}")
-            lib = ctypes.CDLL(str(out))
-            fns = {dtype: getattr(lib, name) for dtype, name in cuda_eig._FN.items()}
-            for fn in fns.values():
-                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            built.append((fns, _PTXAS.findall(log)))
-        return built
-    return finish
 
 
 def function_operands(n, B, seed, dtype, device):
@@ -241,7 +212,7 @@ def sass_counts(name):
     tool = _cuobjdump()
     if tool is None:
         return None
-    out = subprocess.run([tool, "-sass", str(_build._target(name))], capture_output=True, text=True,
+    out = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True, text=True,
                          timeout=120)
     if out.returncode != 0:
         return None
@@ -259,13 +230,14 @@ def sass_counts(name):
 def report_build():
     """Print ptxas's report and the SASS counts of every variant; returns
     the bytes spilled over all of them."""
-    entries = ptxas_entries("eig_stage")
+    variants = _build.current("eig_stage").ptxas()
     sass = sass_counts("eig_stage")
-    for args, regs, stack, st, ld, smem in entries:
-        count = "not available" if sass is None else sass.get(args, "not found")
-        print(f"ptxas eig_stage<{args}>: {regs} registers, stack {stack} B, spill stores {st} B, "
-              f"spill loads {ld} B, static shared {smem} B; SASS instructions {count}", flush=True)
-    return sum(st + ld for _, _, _, st, ld, _ in entries)
+    for v in variants:
+        count = "not available" if sass is None else sass.get(v.args, "not found")
+        print(f"ptxas eig_stage<{v.args}>: {v.registers} registers, stack {v.stack} B, spill stores "
+              f"{v.spill_stores} B, spill loads {v.spill_loads} B, static shared {v.smem} B; SASS instructions "
+              f"{count}", flush=True)
+    return sum(v.spill_stores + v.spill_loads for v in variants)
 
 
 def rows24_count(a24, b24, a16, b16):
@@ -283,12 +255,12 @@ def rows24_count(a24, b24, a16, b16):
     return profiling.recorded()["counters"].get("eig_stage_rows24", 0)
 
 
-def max_differences(At, Bt, fn):
-    """Largest absolute difference of each output (K, V, Yr, Pr, Qr) of the
-    entry point ``fn`` (another build) from the kernel's, on At, Bt, and
-    whether all outputs are the same bits."""
+def max_differences(At, Bt, version):
+    """Largest absolute difference of each output (K, V, Yr, Pr, Qr) of
+    ``version`` (another build) from the kernel's, on At, Bt, and whether
+    all outputs are the same bits."""
     _, mine = run_sweeps(At, Bt, jacobi_sweeps(At.dtype))
-    _, theirs = run_sweeps(At, Bt, jacobi_sweeps(At.dtype), fn)
+    _, theirs = run_sweeps(At, Bt, jacobi_sweeps(At.dtype), version)
     bits = torch.int32 if At.dtype == torch.float32 else torch.int64
     same = all(torch.equal(a.view(bits), b.view(bits)) for a, b in zip(mine, theirs))
     return [(a.double() - b.double()).abs().max().item() for a, b in zip(mine, theirs)], same
@@ -316,9 +288,9 @@ def main(argv=None):
         print("check_eig: CUDA is not available", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    others = start_others(args.source)
-    _build.build(["eig_stage"])
-    print(f"built eig_stage in {time.perf_counter() - t0:.1f} s on {torch.cuda.get_device_name(0)}", flush=True)
+    others = _build.start(["eig_stage"], [(path, "eig_stage", Path(path).read_text()) for path in args.source])()
+    print(f"built eig_stage and {len(others)} other versions in {time.perf_counter() - t0:.1f} s on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
     failed = 0
     spilled = report_build()
     failed += spilled > 0
@@ -354,22 +326,22 @@ def main(argv=None):
     failed += rows24 != 1
     print(f"counter eig_stage_rows24 over a traced launch at n=24 and one at n=16: {rows24} "
           f"{'ok' if rows24 == 1 else 'FAILED (1 expected)'}", flush=True)
-    versions = [("eig_stage.cu", {dtype: cuda_eig._kernel(dtype) for dtype in cuda_eig._FN})]
-    for path, (fns, report) in zip(args.source, others()):
-        for targs, stack, st, ld, regs, _ in report:
-            print(f"ptxas {path}<{targs}>: {regs} registers, stack {stack} B, spill stores {st} B, "
-                  f"spill loads {ld} B", flush=True)
-        err, outs = run_sweeps(At, Bt, jacobi_sweeps(f32), fns[f32])
+    versions = [_build.current("eig_stage")]
+    for other in others:
+        for v in other.ptxas():
+            print(f"ptxas {other.label}<{v.args}>: {v.registers} registers, stack {v.stack} B, spill stores "
+                  f"{v.spill_stores} B, spill loads {v.spill_loads} B", flush=True)
+        err, outs = run_sweeps(At, Bt, jacobi_sweeps(f32), other)
         bad = ["launch"] if err else beyond_limits(eig_errors(At, Bt, outs, Kp), f32)
         failed += bool(bad)
-        print(f"{path}: main path n=16 B={At.shape[2]} f32 {'ok' if not bad else 'FAILED ' + ','.join(bad)}",
+        print(f"{other.label}: main path n=16 B={At.shape[2]} f32 {'ok' if not bad else 'FAILED ' + ','.join(bad)}",
               flush=True)
         for dtype, (a, b) in ((f32, wide), (f64, tuple(x[..., :65536] for x in wide64))):
-            diffs, same = max_differences(a, b, fns[dtype])
-            print(f"{path}: n=24 B=65536 {str(dtype).removeprefix('torch.')}, largest |difference| from "
+            diffs, same = max_differences(a, b, other)
+            print(f"{other.label}: n=24 B=65536 {str(dtype).removeprefix('torch.')}, largest |difference| from "
                   f"eig_stage.cu in K, V, Yr, Pr, Qr: {' '.join(f'{d:.3e}' for d in diffs)}; "
                   f"{'the same bits' if same else 'not the same bits'}", flush=True)
-        versions.append((path, fns))
+        versions.append(other)
     stream = torch.cuda.current_stream().cuda_stream
     for label, n, B, dtype in TIMED:
         a, b = (x[..., :B].contiguous() for x in ops[n, dtype])
@@ -377,14 +349,16 @@ def main(argv=None):
         ptrs = [x.data_ptr() for x in (a, b, *outs)]
         entry = lambda fn, sw: (lambda: fn(*ptrs, n, B, sw, stream))
         reps = 20 if B <= 65536 else 5
-        times, bare = {}, {}
-        for name, fns in versions + versions[::-1]:
-            times.setdefault(name, []).append(cuda_ms(entry(fns[dtype], jacobi_sweeps(dtype)), reps))
-            bare.setdefault(name, []).append(cuda_ms(entry(fns[dtype], 0), reps))
-        wrapper_ms = cuda_ms(lambda: eig_stage_lanes(a, b), reps)
+        wrapped, times, bare = {}, {}, {}
+        for version in versions + versions[::-1]:
+            fn = version.entry(dtype)
+            with _build.swapped(version):
+                wrapped.setdefault(version.label, []).append(cuda_ms(lambda: eig_stage_lanes(a, b), reps))
+            times.setdefault(version.label, []).append(cuda_ms(entry(fn, jacobi_sweeps(dtype)), reps))
+            bare.setdefault(version.label, []).append(cuda_ms(entry(fn, 0), reps))
         show = lambda d: "; ".join(f"{name} {' '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in d.items())
-        print(f"time {label} n={n} B={B} {str(dtype).removeprefix('torch.')}: eig_stage_lanes {wrapper_ms:.4f} ms; "
-              f"C entry: {show(times)}", flush=True)
+        print(f"time {label} n={n} B={B} {str(dtype).removeprefix('torch.')}: through eig_stage_lanes: "
+              f"{show(wrapped)}; C entry: {show(times)}", flush=True)
         print(f"  the same without the sweeps (the stage around the Jacobi): {show(bare)}", flush=True)
     print(f"{failed} checks failed")
     return 1 if failed else 0

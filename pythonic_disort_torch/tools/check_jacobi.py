@@ -19,10 +19,10 @@ all versions in turns (versions, then the same reversed), with kernel 5
 and ``torch.linalg.eigh`` (the library call, in `EIGH_CHUNK` chunks) on the
 same matrices, at the shapes of `TIMED` with CUDA events; and the batched
 gradient step of ``chip_smoke.py`` phase 6 (8 columns x 128 bands, 64
-layers, float32) at NQuad = 32 and 48 with each version in turn as kernel
-4, host clock, best of 3.  Exits nonzero if a check fails.
-`chip_smoke.py` at the repository root is the full run, on operands of
-real solves.
+layers, float32) at NQuad = 32 and 48 with each version in turn launched
+as kernel 4 on that path (``_build.swapped``), host clock, best of 3.
+Exits nonzero if a check fails.  `chip_smoke.py` at the repository root
+is the full run, on operands of real solves.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..ops import _build, cuda_jacobi
+from ..ops import _build
 from ..ops.jacobi import default_sweeps
 
 CHECKED = [(2, 7), (4, 33), (8, 100), (10, 17), (16, 1), (16, 1000), (22, 77), (24, 300), (24, 1025), (30, 40),
@@ -162,19 +162,19 @@ def entry_call(fn, At, sweeps):
     return (lambda: fn(*ptrs, n, B, sweeps, stream)), (w, V)
 
 
-def check_version(name, fns):
-    """Hold one version (entry points by dtype) to `LIMITS`; returns the
-    failed count."""
+def check_version(version):
+    """Hold one version (a `_build.Build`) to `LIMITS` through its C entry;
+    returns the failed count."""
     failed = 0
 
     def eig(At, more=0):
-        call, out = entry_call(fns[At.dtype], At, default_sweeps(At.shape[0], At.dtype) + more)
+        call, out = entry_call(version.entry(At.dtype), At, default_sweeps(At.shape[0], At.dtype) + more)
         if call():
-            raise RuntimeError(f"{name}: launch failed at {tuple(At.shape)}")
+            raise RuntimeError(f"{version.label}: launch failed at {tuple(At.shape)}")
         torch.cuda.synchronize()
         return out
 
-    print(f"checks of {name}", flush=True)
+    print(f"checks of {version.label}", flush=True)
     for n, B in CHECKED:
         for dtype in (torch.float32, torch.float64):
             for what, make in (("ramp", scan_matrices), ("tied pairs", tied_matrices),
@@ -207,11 +207,12 @@ def time_versions(versions, reps=10):
     `TIMED`, in turns."""
     from .check_wide import jacobi_entry
 
+    kernel5 = _build.current("jacobi_eigh_wide")
     for label, n, B, dtype in TIMED:
         At = scan_matrices(n, B, 1, dtype)
         sweeps = default_sweeps(n, dtype)
-        calls = [(name, entry_call(fns[dtype], At, sweeps)[0]) for name, fns in versions]
-        calls.append(("kernel 5 (jacobi_eigh_wide.cu)", jacobi_entry(cuda_jacobi._wide_kernel(dtype)[0], At, sweeps)[0]))
+        calls = [(v.label, entry_call(v.entry(dtype), At, sweeps)[0]) for v in versions]
+        calls.append(("kernel 5 (jacobi_eigh_wide.cu)", jacobi_entry(kernel5, At, sweeps)[0]))
         times = {}
         for name, call in calls + calls[::-1]:
             if call():
@@ -244,17 +245,16 @@ def gradient_step(arrs, dtype, device, nquad=32, wrt="omega"):
 
 
 def time_gradient_steps(versions, reps=3):
-    """The gradient step at NQuad = 32 and 48 with each version as kernel 4,
-    in turns; host clock around synchronized steps, best of ``reps``."""
+    """The gradient step at NQuad = 32 and 48 with each version launched
+    as kernel 4 (`_build.swapped`), in turns; host clock around
+    synchronized steps, best of ``reps``."""
     from .check_bvp import bench_arrays
 
-    kernel = cuda_jacobi._kernel
-    try:
-        for nquad, seed in ((32, 42), (48, 13)):
-            step = gradient_step(bench_arrays(8, seed=seed, nquad=nquad), torch.float32, "cuda", nquad)
-            times = {}
-            for name, fns in versions + versions[::-1]:
-                cuda_jacobi._kernel = fns.__getitem__
+    for nquad, seed in ((32, 42), (48, 13)):
+        step = gradient_step(bench_arrays(8, seed=seed, nquad=nquad), torch.float32, "cuda", nquad)
+        times = {}
+        for version in versions + versions[::-1]:
+            with _build.swapped(version):
                 step()
                 ts = []
                 for _ in range(reps):
@@ -263,13 +263,11 @@ def time_gradient_steps(versions, reps=3):
                     step()
                     torch.cuda.synchronize()
                     ts.append(1e3 * (time.perf_counter() - t0))
-                times.setdefault(name, []).append(min(ts))
-            print(f"time gradient step NQuad={nquad}, 8 columns x 128 bands, L=64, float32 "
-                  f"(host clock, best of {reps}, ms):", flush=True)
-            for name, ts in times.items():
-                print(f"    {' '.join(f'{t:.3f}' for t in ts)}  {name}", flush=True)
-    finally:
-        cuda_jacobi._kernel = kernel
+            times.setdefault(version.label, []).append(min(ts))
+        print(f"time gradient step NQuad={nquad}, 8 columns x 128 bands, L=64, float32 "
+              f"(host clock, best of {reps}, ms):", flush=True)
+        for name, ts in times.items():
+            print(f"    {' '.join(f'{t:.3f}' for t in ts)}  {name}", flush=True)
 
 
 def main(argv=None):
@@ -279,27 +277,23 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("check_jacobi: CUDA is not available", file=sys.stderr)
         return 2
-    from .check_bvp import ptxas_entries
-    from .check_wide import print_ptxas, start_builds
+    from .check_wide import print_ptxas
 
     t0 = time.perf_counter()
-    pending = start_builds([(path, Path(path).read_text()) for path in args.source], "jacobi_eigh")
-    _build.build(["jacobi_eigh", "jacobi_eigh_wide"])
-    others = pending()
+    others = _build.start(["jacobi_eigh", "jacobi_eigh_wide"],
+                          [(path, "jacobi_eigh", Path(path).read_text()) for path in args.source])()
     print(f"built jacobi_eigh, jacobi_eigh_wide and {len(others)} other versions in {time.perf_counter() - t0:.1f} s "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
-    tree = [(a, r, sk, st, ld) for a, r, sk, st, ld, _ in ptxas_entries("jacobi_eigh")]
-    print_ptxas("jacobi_eigh.cu", tree)
-    for label, _, entries in others:
-        print_ptxas(label, entries)
-    spilled = sum(st + ld for *_, st, ld in tree)
+    versions = [_build.current("jacobi_eigh"), *others]
+    for version in versions:
+        print_ptxas(version.label, version.ptxas())
+    tree = versions[0].ptxas()
+    spilled = sum(v.spill_stores + v.spill_loads for v in tree)
     print(f"  jacobi_eigh.cu: {spilled} B spilled over {len(tree)} variants {'ok' if not spilled else 'FAILED'}",
           flush=True)
-    versions = [("jacobi_eigh.cu", {dt: cuda_jacobi._kernel(dt) for dt in (torch.float32, torch.float64)})]
-    versions += [(label, fns) for label, fns, _ in others]
     failed = bool(spilled)
-    for name, fns in versions:
-        failed += check_version(name, fns)
+    for version in versions:
+        failed += check_version(version)
     time_versions(versions)
     time_gradient_steps(versions)
     print(f"{failed} checks failed")

@@ -55,10 +55,7 @@ process.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import itertools
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -68,14 +65,11 @@ import torch
 
 from ..ops import _build
 from ..ops.blocktri import solve_block_tridiag_lanes
-from ..ops.cuda_blocktri import _wide_kernel
-from ..ops.cuda_blocktri import launch_wide as blocktri_wide
-from ..ops.cuda_jacobi import launch_wide as jacobi_wide
-from ..ops.cuda_jacobi import _wide_kernel as _jacobi_kernel
+from ..ops.cuda_blocktri import solve_block_tridiag_lanes_wide as blocktri_wide
+from ..ops.cuda_jacobi import jacobi_eigh_lanes_wide as jacobi_wide
 from ..ops.cuda_jacobi import slot_table
 from ..ops.jacobi import default_sweeps
 from .check_blocktri import random_blocks
-from .check_bvp import _PTXAS, ptxas_entries
 from .check_jacobi import LIMITS, check_readings, cuda_ms, eigvalsh64, readings, scan_matrices
 
 
@@ -190,60 +184,21 @@ def split_copies(bases):
     return copies
 
 
-# the argument types of each source's C entry points (<kind>_f32, _f64)
-ENTRY_ARGS = {"blocktri": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-              "bvp_fused_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-              "blocktri_wide": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-              "jacobi_eigh_wide": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
-              "jacobi_eigh": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+def print_ptxas(label, variants):
+    """Print ptxas's report (`_build.Build.ptxas`) of a build."""
+    for v in variants:
+        print(f"  ptxas {label} <{v.args}>: {v.registers} registers, stack {v.stack} B, spill stores "
+              f"{v.spill_stores} B, spill loads {v.spill_loads} B, static shared {v.smem} B", flush=True)
 
 
-def start_builds(versions, kind="blocktri_wide"):
-    """Start one nvcc for each (label, source text) of ``kind``'s source
-    with the kernels' flags; returns a function that waits for them and
-    gives (label, entry points by dtype, ptxas entries) of each."""
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for label, text in versions:
-        digest = hashlib.sha256(text.encode() + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:16]
-        src = _build.BUILD_DIR / f"other-{kind}-{digest}.cu"
-        src.write_text(text)
-        out = src.with_suffix(".so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.REPORT_FLAGS, "-o", str(out), str(src)]
-        jobs.append((label, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-
-    def finish():
-        built = []
-        for label, out, proc in jobs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {label}:\n{log}")
-            lib = ctypes.CDLL(str(out))
-            fns = {}
-            for dtype, suffix in ((torch.float32, "f32"), (torch.float64, "f64")):
-                fn = getattr(lib, f"{kind}_{suffix}")
-                fn.argtypes = ENTRY_ARGS[kind]
-                fn.restype = ctypes.c_int
-                fns[dtype] = fn
-            entries = [(a, int(r), int(sk), int(st), int(ld)) for a, sk, st, ld, r, _ in _PTXAS.findall(log)]
-            built.append((label, fns, entries))
-        return built
-    return finish
-
-
-def print_ptxas(label, entries):
-    for args, regs, stack, st, ld in entries:
-        print(f"  ptxas {label} <{args}>: {regs} registers, stack {stack} B, spill stores {st} B, "
-              f"spill loads {ld} B", flush=True)
-
-
-def entry_rel(fn, ops):
-    """`lane_rel` of an entry point of another build, its outputs
-    allocated here."""
+def entry_rel(version, ops):
+    """`lane_rel` of kernel 6's C entry in ``version`` (another build), its
+    outputs allocated here."""
     L, n, _, B = ops[1].shape
     WG = torch.empty((B, L, n, n + 1), dtype=ops[1].dtype, device="cuda")
     x = torch.empty_like(ops[3])
-    err = fn(*(t.data_ptr() for t in (*ops, WG, x)), None, L, n, B, torch.cuda.current_stream().cuda_stream)
+    err = version.entry(ops[1].dtype)(*(t.data_ptr() for t in (*ops, WG, x)), None, L, n, B,
+                                      torch.cuda.current_stream().cuda_stream)
     return float("inf") if err else lane_rel(x, ops)
 
 
@@ -262,13 +217,13 @@ def gradient_operands(nquad=68, nlayers=64):
     kwargs = dict(tau_arr=a["tau"][0], omega_arr=a["omega"][0], NQuad=nquad, Leg_coeffs_all=a["leg"][0],
                   mu0=float(a["mu0"][0]), I0=float(a["I0"][0]), phi0=1.0, f_arr=a["f_arr"][0])
     seen = []
-    launch = cuda_blocktri.launch_wide
+    launch = cuda_blocktri.solve_block_tridiag_lanes_wide
 
     def record(*ops, **kw):
         seen.append([o.detach().clone(memory_format=torch.contiguous_format) for o in ops])
         return launch(*ops, **kw)
 
-    cuda_blocktri.launch_wide = record
+    cuda_blocktri.solve_block_tridiag_lanes_wide = record
     try:
         _, prob = pt.build_problem(**kwargs, only_flux=True, dtype=torch.float32, device="cuda")
         prob.omega_arr = prob.omega_arr.clone().requires_grad_()
@@ -276,19 +231,20 @@ def gradient_operands(nquad=68, nlayers=64):
         torch.autograd.grad(ev.flux_up(pt.solve(prob), tau).sum(), prob.omega_arr)
         torch.cuda.synchronize()
     finally:
-        cuda_blocktri.launch_wide = launch
+        cuda_blocktri.solve_block_tridiag_lanes_wide = launch
     return [(f"NQuad={nquad} column gradient, {what} solve", ops) for what, ops in zip(("forward", "transposed"), seen)]
 
 
-def jacobi_entry(fn, At, sweeps):
-    """Kernel 5's C entry point ``fn`` (of any build) on ``At``, outputs
-    allocated here, the device workspace only where A and V do not fit in
-    shared memory; returns a launch function and (w, V)."""
+def jacobi_entry(version, At, sweeps):
+    """Kernel 5's C entry point in ``version`` (any build) on ``At``,
+    outputs allocated here, the device workspace only where A and V do not
+    fit in shared memory; returns a launch function and (w, V)."""
     n, _, B = At.shape
+    fn = version.entry(At.dtype)
     w = torch.empty((n, B), dtype=At.dtype, device="cuda")
     V = torch.empty_like(At)
     slots = slot_table(n, At.device)
-    nbytes = _jacobi_kernel(At.dtype)[1](n, B)          # the interface's own workspace query
+    nbytes = version.entry(At.dtype, "workspace")(n, B)     # the interface's own workspace query
     ws = torch.empty(nbytes // At.element_size(), dtype=At.dtype, device="cuda") if nbytes else None
     ptrs = [At.data_ptr(), w.data_ptr(), V.data_ptr(), slots.data_ptr()]
     stream = torch.cuda.current_stream().cuda_stream
@@ -297,26 +253,26 @@ def jacobi_entry(fn, At, sweeps):
 
 
 def time_jacobi_versions(versions, reps=3):
-    """Each kernel-5 entry point of ``versions`` (label, entry points by
-    dtype) at the shapes of `JACOBI_TIMED`, in turns: versions, then the
-    same in reverse order."""
+    """Kernel 5's C entry in each `_build.Build` of ``versions`` at the
+    shapes of `JACOBI_TIMED`, in turns: versions, then the same in reverse
+    order."""
     for label, n, B, dtype in JACOBI_TIMED:
         At = scan_matrices(n, B, 1, dtype)
         times = {}
-        for name, fns in versions + versions[::-1]:
-            call, _ = jacobi_entry(fns[dtype], At, default_sweeps(n, dtype))
+        for version in versions + versions[::-1]:
+            call, _ = jacobi_entry(version, At, default_sweeps(n, dtype))
             if call():
-                raise RuntimeError(f"{name}: launch failed at n={n} B={B}")
-            times.setdefault(name, []).append(cuda_ms(call, reps))
+                raise RuntimeError(f"{version.label}: launch failed at n={n} B={B}")
+            times.setdefault(version.label, []).append(cuda_ms(call, reps))
         print(f"time jacobi_eigh_wide {label} n={n} B={B} {str(dtype)[6:]} (C entry, ms):", flush=True)
         for name, ts in times.items():
             print(f"    {' '.join(f'{t:.4f}' for t in ts)}  {name}", flush=True)
 
 
 def time_versions(versions, cases, reps=5):
-    """Each entry point of ``versions`` (label, entry points by dtype) on
-    the operands of each case (label, ops), in turns: versions, then the
-    same in reverse order; outputs allocated once per case."""
+    """Kernel 6's C entry in each `_build.Build` of ``versions`` on the
+    operands of each case (label, ops), in turns: versions, then the same
+    in reverse order; outputs allocated once per case."""
     stream = torch.cuda.current_stream().cuda_stream
     for label, ops in cases:
         L, n, _, B = ops[1].shape
@@ -325,11 +281,12 @@ def time_versions(versions, cases, reps=5):
         x = torch.empty_like(ops[3])
         ptrs = [t.data_ptr() for t in (*ops, WG, x)]
         times = {}
-        for name, fns in versions + versions[::-1]:
-            call = lambda: fns[dtype](*ptrs, None, L, n, B, stream)
+        for version in versions + versions[::-1]:
+            fn = version.entry(dtype)
+            call = lambda: fn(*ptrs, None, L, n, B, stream)
             if call():
-                raise RuntimeError(f"{name}: launch failed at L={L} n={n} B={B}")
-            times.setdefault(name, []).append(cuda_ms(call, reps))
+                raise RuntimeError(f"{version.label}: launch failed at L={L} n={n} B={B}")
+            times.setdefault(version.label, []).append(cuda_ms(call, reps))
         print(f"time blocktri_wide {label} L={L} n={n} B={B} {str(dtype)[6:]} (C entry, ms):", flush=True)
         for name, ts in times.items():
             print(f"    {' '.join(f'{t:.4f}' for t in ts)}  {name}", flush=True)
@@ -349,17 +306,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     others = [(path, Path(path).read_text()) for path in args.source]
     copies = split_copies(args.split)
-    pending = start_builds(others + copies)
-    pending_jacobi = start_builds([(path, Path(path).read_text()) for path in args.jacobi_source],
-                                  "jacobi_eigh_wide")
-    _build.build(names)
-    built, built_jacobi = pending(), pending_jacobi()
-    print(f"built {names} and {len(built) + len(built_jacobi)} other versions in {time.perf_counter() - t0:.1f} s "
+    built_all = _build.start(names, [(label, "blocktri_wide", text) for label, text in others + copies]
+                             + [(path, "jacobi_eigh_wide", Path(path).read_text()) for path in args.jacobi_source])()
+    built, built_jacobi = built_all[:len(others) + len(copies)], built_all[len(others) + len(copies):]
+    print(f"built {names} and {len(built_all)} other versions in {time.perf_counter() - t0:.1f} s "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
-    for name in names[:2]:
-        print_ptxas(name, [(a, r, sk, st, ld) for a, r, sk, st, ld, _ in ptxas_entries(name)])
-    for label, _, entries in built + built_jacobi:
-        print_ptxas(label, entries)
+    for version in [*map(_build.current, names[:2]), *built_all]:
+        print_ptxas(version.label, version.ptxas())
     failed = 0
     for n, B in JACOBI:
         for dtype in (torch.float32, torch.float64):
@@ -370,13 +323,13 @@ def main(argv=None):
                 w, V = jacobi_wide(At, default_sweeps(n, dtype), workspace=ws)
                 label = f"jacobi_wide n={n} B={B} {str(dtype)[6:]}{' workspace' if ws else ''}"
                 failed += check_readings(label, readings(At, w, V, w64), dtype, limits=lim)
-            for name, fns, _ in built_jacobi:
-                call, (w, V) = jacobi_entry(fns[dtype], At, default_sweeps(n, dtype))
+            for version in built_jacobi:
+                call, (w, V) = jacobi_entry(version, At, default_sweeps(n, dtype))
                 if call():
                     failed += 1
-                    print(f"  {name} n={n} B={B}: launch FAILED", flush=True)
+                    print(f"  {version.label} n={n} B={B}: launch FAILED", flush=True)
                     continue
-                label = f"{name} n={n} B={B} {str(dtype)[6:]}"
+                label = f"{version.label} n={n} B={B} {str(dtype)[6:]}"
                 failed += check_readings(label, readings(At, w, V, w64), dtype, limits=lim)
     for L, n, B in BLOCKTRI:
         for dtype in (torch.float32, torch.float64):
@@ -421,27 +374,25 @@ def main(argv=None):
             print(f"  pydisort NQuad={nquad} {label}: |f32 - f64| {d:.3e} (bound {bound:.3e}) "
                   f"{'ok' if d < bound else 'FAILED'}", flush=True)
 
-    tree = {dtype: _jacobi_kernel(dtype)[0] for dtype in (torch.float32, torch.float64)}
-    time_jacobi_versions([("jacobi_eigh_wide.cu", tree)] + [(lb, fns) for lb, fns, _ in built_jacobi])
+    time_jacobi_versions([_build.current("jacobi_eigh_wide"), *built_jacobi])
     if built_jacobi and not (args.source or args.split):
         print(f"{failed} checks failed")
         return 1 if failed else 0
     ops = random_blocks(64, 68, 256, 1, torch.float32)
     ms = cuda_ms(lambda: blocktri_wide(*ops), 3)
-    print(f"  blocktri_wide L=64 n=68 B=256 float32 through launch_wide: {ms:.4f} ms", flush=True)
+    print(f"  blocktri_wide L=64 n=68 B=256 float32 through solve_block_tridiag_lanes_wide: {ms:.4f} ms", flush=True)
     ops64 = random_blocks(64, 68, 256, 1, torch.float64)
-    for label, fns, _ in built[:len(others)]:
+    for version in built[:len(others)]:
         for o in (ops, ops64):
-            rel = entry_rel(fns[o[1].dtype], o)
+            rel = entry_rel(version, o)
             ok = rel < BT_TOL[o[1].dtype]
             failed += not ok
-            print(f"  {label} L=64 n=68 B=256 {str(o[1].dtype)[6:]}: per-lane rel {rel:.3e} "
+            print(f"  {version.label} L=64 n=68 B=256 {str(o[1].dtype)[6:]}: per-lane rel {rel:.3e} "
                   f"{'ok' if ok else 'FAILED'}", flush=True)
     del ops64
     cases = itertools.chain(((label, random_blocks(L, n, B, 1, dtype)) for label, L, n, B, dtype in BT_TIMED),
                             gradient_operands())
-    tree = {dtype: _wide_kernel(dtype)[0] for dtype in (torch.float32, torch.float64)}
-    time_versions([("blocktri_wide.cu", tree)] + [(lb, fns) for lb, fns, _ in built], cases)
+    time_versions([_build.current("blocktri_wide"), *built], cases)
     print(f"{failed} checks failed")
     return 1 if failed else 0
 

@@ -37,6 +37,11 @@ The spans (``device`` marks those timed on the device as well):
   and whether nvcc ran, are recorded under ``builds`` with or without a
   profiler: a load happens once a kernel a process.
 
+Each kernel launch (``ops/_build.py::launch``) is counted under
+``launches``, by the kernel's source name (``eig_stage``, ``bvp_fused``,
+``bvp_fused_wide``, ``blocktri``, ``blocktri_wide``, ``jacobi_eigh``,
+``jacobi_eigh_wide``), with or without a profiler.
+
 The counters: ``h2d_bytes``, the bytes the port copies from host memory
 to a CUDA device; ``host_syncs``, each point where the port blocks the
 host on the device (each such pageable copy, each device value read on
@@ -79,6 +84,7 @@ class _Record:
         self.pending = {}       # name -> [(start event, end event)]
         self.counters = {}
         self.builds = {}
+        self.launch_counts = {}
 
 
 _RECORD = _Record()
@@ -153,13 +159,11 @@ def built(kernel: str, seconds: float, nvcc: bool) -> None:
         r.builds[kernel] = {"seconds": seconds, "nvcc": nvcc}
 
 
-def _launch_counters():
-    """The kernel wrappers that count their launches in ``.launches``."""
-    from ..ops import cuda_blocktri as bt
-    from ..ops import cuda_eig, cuda_jacobi
-
-    return (cuda_eig.eig_stage_lanes, bt.solve_bvp_fused, bt.solve_bvp_fused_wide, bt.solve_block_tridiag_lanes_cuda,
-            bt.solve_block_tridiag_lanes_wide, cuda_jacobi.jacobi_eigh_lanes, cuda_jacobi.jacobi_eigh_lanes_wide)
+def launched(kernel: str) -> None:
+    """Count one launch of ``kernel`` (with or without a profiler)."""
+    r = _RECORD
+    with r.lock:
+        r.launch_counts[kernel] = r.launch_counts.get(kernel, 0) + 1
 
 
 def recorded() -> dict:
@@ -167,13 +171,13 @@ def recorded() -> dict:
 
     ``{"spans": {name: {"calls", "host_ms", "device_ms"}}, "counters":
     {name: n}, "builds": {kernel: {"seconds", "nvcc"}}, "launches":
-    {wrapper: n}}``.
+    {kernel: n}}``.
 
     ``device_ms`` sums the device extents of a span's completed event
     pairs (None for a span never timed on a device); call it after the
     device has finished the work (``torch.cuda.synchronize()``): a pair
-    still pending is left for a later call.  ``launches`` reads the
-    kernel wrappers' ``.launches`` counters.
+    still pending is left for a later call.  ``launches`` holds the
+    kernels launched, each with its count.
     """
     r = _RECORD
     with r.lock:
@@ -188,18 +192,14 @@ def recorded() -> dict:
             pairs[:] = left
         spans = {name: {"calls": calls, "host_ms": 1e3 * host, "device_ms": r.device_ms.get(name)}
                  for name, (calls, host) in r.spans.items()}
-        out = {"spans": spans, "counters": dict(r.counters),
-               "builds": {k: dict(v) for k, v in r.builds.items()}}
-    out["launches"] = {w.__name__: w.launches for w in _launch_counters()}
-    return out
+        return {"spans": spans, "counters": dict(r.counters),
+                "builds": {k: dict(v) for k, v in r.builds.items()}, "launches": dict(r.launch_counts)}
 
 
 def reset() -> None:
-    """Clear the totals, the builds and the wrappers' launch counters."""
+    """Clear the totals, the builds and the launch counts."""
     with _RECORD.lock:
         _RECORD.clear()
-    for w in _launch_counters():
-        w.launches = 0
 
 
 @contextlib.contextmanager

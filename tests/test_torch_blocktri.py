@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from pythonic_disort_tpu.ops import blocktri as jbt
 from pythonic_disort_torch.ops import blocktri, cuda_blocktri
+from pythonic_disort_torch.utils import profiling
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -146,9 +147,9 @@ def test_gauss_jordan_pivots():
 
 def test_bvp_wrapper_cpu_takes_plain_and_counts_no_launch():
     ops = [torch.as_tensor(o) for o in _operands(3, 2, 4, seed=5)]
-    before = cuda_blocktri.solve_bvp_fused.launches
+    before = profiling.recorded()["launches"]
     x = cuda_blocktri.solve_bvp_fused(*ops)
-    assert cuda_blocktri.solve_bvp_fused.launches == before
+    assert profiling.recorded()["launches"] == before
     torch.testing.assert_close(x, cuda_blocktri.solve_bvp_fused_plain(*ops), rtol=0, atol=0)
 
 
@@ -231,9 +232,9 @@ def test_generic_solve_pivots():
 
 def test_generic_wrapper_cpu_takes_plain_and_counts_no_launch():
     ops = [torch.as_tensor(o) for o in _dense_blocks(3, 4, 2, seed=5)]
-    before = cuda_blocktri.solve_block_tridiag_lanes_cuda.launches
+    before = profiling.recorded()["launches"]
     x = cuda_blocktri.solve_block_tridiag_lanes_cuda(*ops)
-    assert cuda_blocktri.solve_block_tridiag_lanes_cuda.launches == before
+    assert profiling.recorded()["launches"] == before
     torch.testing.assert_close(x, blocktri.solve_block_tridiag_lanes(*ops), rtol=0, atol=0)
 
 

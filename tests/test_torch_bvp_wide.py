@@ -42,6 +42,7 @@ import pythonic_disort_torch as pt
 from pythonic_disort_torch.models.disort import batch_solve
 from pythonic_disort_torch.ops import cuda_blocktri
 from pythonic_disort_torch.tools.check_bvp import bench_arrays
+from pythonic_disort_torch.utils import profiling
 from test_batch_solve import _problem
 from test_torch_solve_fluxes import to_port
 
@@ -268,9 +269,9 @@ def test_cpu_solve_matches_jax(L, N, B):
     """`solve_bvp_fused` on CPU tensors (its plain version) at 2N = 34, 48
     and 64 against the JAX package; it counts no launch."""
     ops = _operands(L, N, B, seed=90 + L + N)
-    before = (cuda_blocktri.solve_bvp_fused.launches, cuda_blocktri.solve_bvp_fused_wide.launches)
+    before = profiling.recorded()["launches"]
     x = cuda_blocktri.solve_bvp_fused(*(torch.as_tensor(o) for o in ops)).numpy()
-    assert (cuda_blocktri.solve_bvp_fused.launches, cuda_blocktri.solve_bvp_fused_wide.launches) == before
+    assert profiling.recorded()["launches"] == before
     _close(x, _jax_x(ops))
 
 
@@ -299,16 +300,18 @@ def test_wide_wrapper_refuses_kernel_2_sizes(n2):
 
 
 def _spy(monkeypatch):
-    """Count the batched solve's calls of its two boundary-value routes."""
-    calls = {"solve_bvp_fused": 0, "solve_block_tridiag_lanes_cuda": 0}
+    """Count the calls of the two boundary-value routes behind
+    `solve_bvp_fused`: the fused solve (``_bvp_fused``, kernels 2 and 7 on
+    the card) and the generic block-Thomas solve on assembled blocks."""
+    calls = {"_bvp_fused": 0, "solve_block_tridiag_lanes_cuda": 0}
     for name in calls:
-        wrapped = getattr(batch_solve, name)
+        wrapped = getattr(cuda_blocktri, name)
 
         def spy(*ops, _name=name, _wrapped=wrapped):
             calls[_name] += 1
             return _wrapped(*ops)
 
-        monkeypatch.setattr(batch_solve, name, spy)
+        monkeypatch.setattr(cuda_blocktri, name, spy)
     return calls
 
 
@@ -324,15 +327,24 @@ def _small_problem(nquad, seed):
 
 @pytest.mark.parametrize("nquad,fused", [(48, True), (68, False)])
 def test_batched_route(monkeypatch, nquad, fused):
-    """NQuad = 48 (2N = 48) hands the boundary-value operands to
-    `solve_bvp_fused` (kernel 7 on the card) and assembles no blocks;
-    NQuad = 68 (2N = 68 > 64) keeps the assembled blocks and the generic
-    block-Thomas solve (kernel 6 on the card)."""
+    """The batched solve hands the boundary-value operands to
+    `solve_bvp_fused` at every 2N, which routes by width: NQuad = 48
+    (2N = 48) takes the fused solve (kernel 7 on the card) and assembles
+    no blocks; NQuad = 68 (2N = 68 > 64) assembles the blocks for the
+    generic block-Thomas solve (kernel 6 on the card)."""
     calls = _spy(monkeypatch)
+    widths = []
+
+    def bvp(*ops):
+        widths.append(ops[0].shape[1])
+        return cuda_blocktri.solve_bvp_fused(*ops)
+
+    monkeypatch.setattr(batch_solve, "solve_bvp_fused", bvp)
     prob = _small_problem(nquad, seed=nquad)
     fluxes = pt.solve_fluxes(prob, prob.tau_arr)
     assert all(torch.isfinite(f).all() for f in fluxes)
-    assert calls == {"solve_bvp_fused": int(fused), "solve_block_tridiag_lanes_cuda": int(not fused)}
+    assert widths == [nquad]
+    assert calls == {"_bvp_fused": int(fused), "solve_block_tridiag_lanes_cuda": int(not fused)}
 
 
 def test_batched_gradient_nquad48_matches_jax(monkeypatch):
@@ -354,6 +366,6 @@ def test_batched_gradient_nquad48_matches_jax(monkeypatch):
     fup, fdn, fdir = pt.solve_fluxes(port, torch.as_tensor(tau))
     ((fup**2).sum() + (fdn * fdir).sum()).backward()
     g = port.omega_arr.grad.numpy()
-    assert calls == {"solve_bvp_fused": 1, "solve_block_tridiag_lanes_cuda": 0}
+    assert calls == {"_bvp_fused": 1, "solve_block_tridiag_lanes_cuda": 0}
     assert np.isfinite(g).all()
     np.testing.assert_allclose(g, g_ref, rtol=1e-8, atol=1e-11 * np.abs(g_ref).max())

@@ -2,10 +2,12 @@
 ``recorded``, ``reset``) on the CPU: nothing recorded without a profiler,
 the stage spans of the batched solve, the Planck route and the NT
 intensity under one, how they nest, that none lies on a device timeline,
-that outputs do not change, and the kernel loads it records always."""
+that outputs do not change, and the kernel loads and launches it records
+always."""
 
 import sys
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -13,7 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import pythonic_disort_torch as pt
-from pythonic_disort_torch.ops import _build, cuda_eig, planck
+from pythonic_disort_torch.ops import _build, planck
 from pythonic_disort_torch.utils import profiling
 
 R, L, NQ, NF = 4, 5, 8, 4
@@ -105,9 +107,7 @@ def test_each_call_records_its_spans(call):
     assert {e.name for e in prof.events() if e.name.startswith("disort.")} == names
     # no copy to a CUDA device here, and no host read of one
     assert rec["counters"].get("h2d_bytes", 0) == 0 and rec["counters"].get("host_syncs", 0) == 0
-    assert set(rec["launches"]) == {"eig_stage_lanes", "solve_bvp_fused", "solve_bvp_fused_wide",
-                                    "solve_block_tridiag_lanes_cuda", "solve_block_tridiag_lanes_wide",
-                                    "jacobi_eigh_lanes", "jacobi_eigh_lanes_wide"}
+    assert rec["launches"] == {}                          # no kernel launches on the CPU
 
 
 def test_entry_copies_nest_inside_the_entry_and_no_span_is_on_a_device():
@@ -139,14 +139,14 @@ def test_reset_empties_the_record():
     with profile(activities=[ProfilerActivity.CPU]):
         profiling.count("host_syncs", 3)
     profiling.built("eig_stage", 0.5, False)
-    cuda_eig.eig_stage_lanes.launches = 2
+    profiling.launched("eig_stage")
+    profiling.launched("eig_stage")
     rec = profiling.recorded()
     assert rec["spans"] and rec["counters"] == {"host_syncs": 3} and rec["builds"]
-    assert rec["launches"]["eig_stage_lanes"] == 2
+    assert rec["launches"] == {"eig_stage": 2}
     profiling.reset()
     rec = profiling.recorded()
-    assert rec["spans"] == {} and rec["counters"] == {} and rec["builds"] == {}
-    assert set(rec["launches"].values()) == {0}
+    assert rec["spans"] == {} and rec["counters"] == {} and rec["builds"] == {} and rec["launches"] == {}
 
 
 def test_planck_rule_builds_then_hits():
@@ -173,7 +173,6 @@ def test_planck_rule_hit_pct_reads_the_counters(monkeypatch, counters, want):
     (a port without the rule cache)."""
     import importlib.util
     import pathlib
-    import types
 
     bench = pathlib.Path(__file__).resolve().parents[1] / "benchmark"
     monkeypatch.syspath_prepend(str(bench))
@@ -204,6 +203,35 @@ def test_kernel_loads_are_recorded_without_a_profiler(monkeypatch, compiled):
     assert builds["eig_stage"]["seconds"] >= 0
     profiling.reset()
     assert _build.load("eig_stage") is lib and profiling.recorded()["builds"] == {}
+
+
+def test_launch_counts_one_launch_or_raises_naming_the_kernel(monkeypatch):
+    """`_build.launch` through a fake entry point swapped in for kernel 3's
+    (`_build.swapped`): the entry gets the arguments and the stream last,
+    declared from `_build.SIGNATURES`; a zero return counts one launch
+    under ``blocktri``, a nonzero one (a CUDA error code) raises
+    ``RuntimeError`` naming the kernel and counts nothing."""
+    class FakeLibrary:
+        pass
+
+    calls, codes = [], [0, 700]
+
+    def blocktri_f64(*args):
+        calls.append(args)
+        return codes.pop(0)
+
+    lib = FakeLibrary()
+    lib.blocktri_f64 = blocktri_f64
+    fake = _build.Build("fake", "blocktri", _build.BUILD_DIR / "fake.so", lib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: types.SimpleNamespace(cuda_stream=42))
+    with _build.swapped(fake):
+        _build.launch("blocktri", torch.float64, "cpu", 1, 2, 3)
+        assert calls == [(1, 2, 3, 42)] and profiling.recorded()["launches"] == {"blocktri": 1}
+        with pytest.raises(RuntimeError, match="blocktri kernel launch failed: CUDA error 700"):
+            _build.launch("blocktri", torch.float64, "cpu", 4, 5, 6)
+    assert calls[1] == (4, 5, 6, 42) and profiling.recorded()["launches"] == {"blocktri": 1}
+    assert tuple(vars(blocktri_f64).values()) == _build.SIGNATURES["blocktri"][""]    # its signature, declared
+    assert "blocktri" not in _build._swapped
 
 
 def test_totals_under_threads(monkeypatch):

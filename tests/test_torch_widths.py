@@ -219,13 +219,15 @@ def test_grad_nquad68_matches_jax():
 
 # ------------------------------------------------ the wide kernels' wrappers
 def test_wide_wrappers_take_cuda_tensors_only():
-    """Kernels 5 and 6 raise for a CPU tensor: only `jacobi_eigh_lanes_raw`
-    and `solve_block_tridiag_lanes_cuda` dispatch on the device."""
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda_jacobi.jacobi_eigh_lanes_wide(torch.eye(3, dtype=f64)[:, :, None].contiguous(), 12)
+    """Kernels 5 and 6 raise for a CPU tensor, with their device workspace
+    or without: only `jacobi_eigh_lanes_raw` and
+    `solve_block_tridiag_lanes_cuda` dispatch on the device."""
     blocks = [torch.zeros((2, 66, 66, 1), dtype=f64) for _ in range(3)]
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda_blocktri.solve_block_tridiag_lanes_wide(*blocks, torch.zeros((2, 66, 1), dtype=f64))
+    for workspace in (False, True):
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_jacobi.jacobi_eigh_lanes_wide(torch.eye(3, dtype=f64)[:, :, None].contiguous(), 12, workspace)
+        with pytest.raises(ValueError, match="CUDA"):
+            cuda_blocktri.solve_block_tridiag_lanes_wide(*blocks, torch.zeros((2, 66, 1), dtype=f64), workspace)
 
 
 def test_wide_slot_table():
