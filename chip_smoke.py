@@ -36,9 +36,13 @@ solves, and drives both paths of the port:
   probe per layer and through its general path, and a longwave chunk (8
   columns, a linear isotropic source in every layer, surface emission, no
   beam) through ``solve_fluxes`` and ``solve_actinic``, each against the
-  port's float64 CPU result on a subset of rows, timed and traced.  Phase
-  3 holds kernels 1 and 2 at the intensity chunk's shapes (262 144 eigen
-  lanes, B = 4096 boundary-value lanes);
+  port's float64 CPU result on a subset of rows, timed and traced; the NT
+  correction's three Legendre series take one launch each of the
+  Legendre-series kernel (``csrc/legendre_series.cu``).  Phase 3 holds
+  kernels 1 and 2 at the intensity chunk's shapes (262 144 eigen lanes,
+  B = 4096 boundary-value lanes) and the Legendre-series kernel, bit for
+  bit, against the plain loop at a ``cloud_radiance`` chunk's series and
+  the intensity chunk's; phase 5 counts its launches in the NT goldens;
 - a longwave sweep from temperature profiles (phase 9): the bench chunk's
   optical properties, 128 bands over 10-3250 cm^-1 and one 65-level
   profile a column, through ``ops.planck.s_poly_coeffs_from_temper`` and
@@ -1261,6 +1265,42 @@ def phase_bvp_wide(ops48):
                 ptxas=ptxas)
 
 
+def phase_legendre():
+    """The Legendre-series kernel against the plain loop on the card
+    (``tools/check_legendre.py``'s check, bit for bit, one launch a
+    series): the NT correction's three series at a ``cloud_radiance``
+    chunk's shapes (300 moments, float64) and at phase 8's intensity
+    chunk's (float32); timed at the exact phase function's series of the
+    ``cloud_radiance`` chunk, on both routes."""
+    import torch
+    from pythonic_disort_torch.ops import _build, legendre
+    from pythonic_disort_torch.tools.check_legendre import CELLS, bound_ms, check_bits, loop, nt_series
+
+    log("phase 3: the Legendre-series kernel against the plain loop")
+    cloud = nt_series(CELLS["cloud_radiance"], torch.float64)
+    chunk = nt_series((INT_COLS * NBANDS, NLAYERS, NQUAD // 2, len(INT_PHI), NQUAD + 1, NQUAD), torch.float32)
+    for what, series in (("cloud_radiance chunk, f64", cloud), ("intensity chunk, f32", chunk)):
+        for label, (c, x) in series.items():
+            check(check_bits(f"  legendre_series {label} {tuple(c.shape)} x {tuple(x.shape)} ({what})", c, x),
+                  f"legendre_series {label} ({what}): the plain loop's bits, one launch")
+    c, x = cloud["tms_exact"]
+    ms = cuda_ms(lambda: legendre.legendre_series_bcast(c, x), 20)
+    plain_ms = cuda_ms(lambda: loop(c, x), 3)
+    bound, by = bound_ms(c, x)
+    ptxas = {v.args: dict(registers=v.registers, spill_stores=v.spill_stores, spill_loads=v.spill_loads)
+             for v in _build.current("legendre_series").ptxas()}
+    log(f"  legendre_series at {tuple(c.shape)} x {tuple(x.shape)} f64: {ms:.4f} ms, plain loop {plain_ms:.3f} ms, "
+        f"bound {bound:.4f} ms ({by})")
+    check(all(r["spill_stores"] + r["spill_loads"] == 0 for r in ptxas.values()), "legendre_series does not spill")
+    return dict(name="legendre_series", route="cuda", source="pythonic_disort_torch/csrc/legendre_series.cu",
+                replaces=None, replaces_function="none: pythonic_disort_tpu/ops/legendre.py::legendre_series "
+                "is a lax.scan, no Pallas kernel",
+                launches=None, max_abs_err=0.0, max_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, library_call=None,
+                timed_at=f"{tuple(c.shape)} x {tuple(x.shape)} float64, the cloud_radiance chunk's exact phase "
+                "function", ptxas=ptxas)
+
+
 def phase_main_path(arrs, problem, tau, kernels):
     import torch
     from pythonic_disort_torch import solve_fluxes
@@ -1390,6 +1430,7 @@ def phase_single_column(kernels):
     log("phase 5: single-column path, pydisort in float32 on the card")
     cases = golden_cases()
     margins = {}
+    profiling.reset()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")     # the goldens' albedos near 1 warn, as in the reference
         for name, (kwargs, deg) in cases.items():
@@ -1400,6 +1441,11 @@ def phase_single_column(kernels):
                   f"golden {name}: relative errors where |diff| > 1e-3 below 1e-3 (fluxes) and 1e-2 (intensity)")
     tight = max(margins, key=margins.get)
     log(f"  {len(cases)} goldens pass in float32; the tightest is {tight} at {margins[tight]:.3f} of its limit")
+    nt_cases = sum(bool(kwargs.get("NT_cor")) for kwargs, _ in cases.values())
+    series = profiling.recorded()["launches"].get("legendre_series", 0)
+    log(f"  the {nt_cases} goldens with NT_cor=True launched the Legendre-series kernel {series} times")
+    check(series >= 3 * nt_cases > 0, "the NT goldens' series ran on the Legendre-series kernel, three a correction")
+    by_name["legendre_series"]["launches_nt_goldens"] = series
     (dfu, dfdd, diff), (dfu_dM, dfdd_dM, diff_NT) = corrections_readings(**f32)
     log(f"  9corrections: mean improvement of flux_up {np.mean(dfu - dfu_dM):.3e}, diffuse flux_down "
         f"{np.mean(dfdd - dfdd_dM):.3e}, u {np.mean(diff - diff_NT):.3e}; corrected run max |diff| flux_up "
@@ -2123,6 +2169,8 @@ def phase_intensity(kernels, card):
     t_phase = time.perf_counter()
     by_name = {k["name"]: k for k in kernels}
     others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused")]
+    nt_on = ("eig_stage", "bvp_fused", "legendre_series")
+    nt_others = [k for k in others if k not in nt_on]
     S = INT_COLS * NBANDS
     log(f"phase 8: batched intensity path, {INT_COLS} columns x {NBANDS} bands, L={NLAYERS}, NQuad={NQUAD}, "
         f"NFourier={INT_NFOURIER}, NT-corrected, {len(INT_PHI)} azimuths, f32, cuda ({card})")
@@ -2131,9 +2179,10 @@ def phase_intensity(kernels, card):
 
     # (a) one probe per layer, the path bench.py times
     probes = lambda: solve_intensity(problem, tau, phi, probes_per_layer=True)
-    u, launches = launched(probes, "(a) one intensity chunk, probes per layer", ("eig_stage", "bvp_fused"), others)
-    for k in ("eig_stage", "bvp_fused"):
+    u, launches = launched(probes, "(a) one intensity chunk, probes per layer", nt_on, nt_others)
+    for k in nt_on:
         by_name[k]["launches_intensity_chunk"] = launches[k]
+    check(launches["legendre_series"] == 3, "(a) the NT correction's three series, one launch each")
     check(u.shape == (S, NQUAD, NLAYERS, len(INT_PHI)) and torch.isfinite(u).all().item(),
           f"u finite with shape ({S}, {NQUAD}, {NLAYERS}, {len(INT_PHI)})")
     a_ms = best_ms(probes, INT_CHUNKS)
@@ -2146,7 +2195,8 @@ def phase_intensity(kernels, card):
 
     # (b) the general path: GC materialized, layer gathers in the evaluators
     general = lambda: solve_intensity(problem, tau, phi)
-    u_gen, _ = launched(general, "(b) one intensity chunk, general path", ("eig_stage", "bvp_fused"), others)
+    u_gen, launches = launched(general, "(b) one intensity chunk, general path", nt_on, nt_others)
+    check(launches["legendre_series"] == 3, "(b) the NT correction's three series, one launch each")
     within(u.double().cpu().numpy(), u_gen.double().cpu().numpy(), "(b) general path against (a)",
            what="the probe path (a)")
     del u_gen
@@ -2779,7 +2829,7 @@ def main():
     main_ops = capture_kernel_inputs(problem, tau)
     ops48, kernels = phase_kernels(main_ops)
     phase_intensity_kernels(kernels)
-    kernels += phase_wide_kernels() + [phase_bvp_wide(ops48)]
+    kernels += phase_wide_kernels() + [phase_bvp_wide(ops48), phase_legendre()]
     chunk_ms = phase_main_path(arrs, problem, tau, kernels)
     phase_trace(lambda: solve_fluxes(problem, tau), "phase 4, one main-path chunk", chunk_ms)
     phase_single_column(kernels)

@@ -78,13 +78,13 @@ def nt_correction(sol: DisortSolution, tau, phi, antiderivative: bool = False):
 
     nu = _nu(mu_arr, phi, -mu0, phi0)[:, None]               # (S, 1, 2N, Nphi)
     with span("disort.eval.nt.series", device):
-        # The IMS residual phase function at the downward streams comes
-        # first: its small tensors make it launch-bound, and the batched
-        # entries do not synchronize between the solve and this correction,
-        # so its launches overlap the solve's kernels still queued.
+        # Three Legendre series, each one kernel launch on the card (the
+        # plain loop on the CPU and under a gradient or a tangent): the IMS
+        # residual phase function at the downward streams, then the TMS's
+        # exact and truncated phase functions per layer, which broadcast
+        # the one ``nu`` along the layers.
         ims_phase = legendre_series_bcast(
             (two_ell_p1 * (2.0 * residue_avg - residue_avg**2))[:, None, None, :], nu_neg)   # (S, N, Nphi)
-        # exact and truncated phase functions per layer at the beam angles (TMS)
         p_true = legendre_series_bcast(sol.weighted_leg_all[:, :, None, None, :], nu)    # (S, L, 2N, Nphi)
         p_trun = legendre_series_bcast(sol.weighted_scaled_leg[:, :, None, None, :], nu)
 

@@ -11,16 +11,27 @@ the scattering kernels use); entries with ``l < m`` are exactly zero.
 a problem is built.  `legendre_series_bcast` evaluates ``sum_l c_l P_l(x)``
 by Clenshaw's recurrence, a series per batch element; `legendre_series`
 every series at every point.
+
+On the card a series is one launch of the CUDA kernel
+``csrc/legendre_series.cu`` (`legendre_series_rows`), which takes a call
+reduced to R rows of coefficients and Q points a row (`row_operands`).
+Every other call, and any call that takes a gradient or carries a
+forward-mode tangent, runs the plain loop (`_clenshaw`), one step of five
+tensor operations a moment; `legendre_series_rows_plain` is the kernel's
+function in that loop.  Both round each operation as the loop does, so the
+kernel's output is the loop's, bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
 from ..utils.profiling import count
+from . import _build
 
 
 def _seed_log_coeffs(nmodes: int) -> np.ndarray:
@@ -118,15 +129,103 @@ def legendre_series_bcast(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     """``sum_l coeffs[..., l] P_l(x)`` by Clenshaw's recurrence, with
     ``coeffs[..., l]`` broadcast against ``x``: a series per batch element,
     e.g. coeffs (S, L, 1, 1, ndeg) and x (S, 1, K, P) give (S, L, K, P).
-    Counts its ``ndeg`` Clenshaw steps as ``legendre_terms`` while a
-    profiler runs."""
+    On the card one launch of `legendre_series_rows` where the call takes
+    the row form (`row_operands`) and `_loop_only` does not hold; otherwise
+    the plain loop.  Counts its ``ndeg`` Clenshaw steps as
+    ``legendre_terms`` while a profiler runs, on either route."""
     ndeg = coeffs.shape[-1]
     count("legendre_terms", ndeg)
     shape = torch.broadcast_shapes(coeffs.shape[:-1], x.shape)
+    if _on_card(coeffs, x) and not _loop_only(coeffs, x):
+        operands = row_operands(coeffs, x, shape)
+        if operands is not None:
+            return legendre_series_rows(*operands).reshape(shape)
+    return _clenshaw(coeffs, x, shape)
+
+
+def _clenshaw(coeffs: torch.Tensor, x: torch.Tensor, shape) -> torch.Tensor:
+    """The plain loop: one step of five tensor operations a moment, from the
+    top degree down; ``shape`` is the broadcast output shape."""
     b1 = torch.zeros(shape, dtype=x.dtype, device=x.device)
     b2 = torch.zeros_like(b1)
-    for ell in range(ndeg - 1, -1, -1):
+    for ell in range(coeffs.shape[-1] - 1, -1, -1):
         alpha = (2.0 * ell + 1.0) / (ell + 1.0)
         beta = (ell + 1.0) / (ell + 2.0)
         b1, b2 = coeffs[..., ell] + alpha * x * b1 - beta * b2, b1
     return b1
+
+
+def _on_card(coeffs: torch.Tensor, x: torch.Tensor) -> bool:
+    return x.is_cuda and coeffs.device == x.device
+
+
+def _loop_only(coeffs: torch.Tensor, x: torch.Tensor) -> bool:
+    """Whether a call needs the plain loop on any device: operands of two
+    dtypes or of one the kernel does not take (float32, float64), a
+    gradient (grad mode on and an operand requiring one) or a forward-mode
+    tangent (``_build.has_tangent``): the kernel carries neither."""
+    grad = torch.is_grad_enabled() and (coeffs.requires_grad or x.requires_grad)
+    return (coeffs.dtype != x.dtype or x.dtype not in _build.SUFFIX or grad
+            or _build.has_tangent(coeffs) or _build.has_tangent(x))
+
+
+def row_operands(coeffs: torch.Tensor, x: torch.Tensor, shape):
+    """The call as the kernel takes it: ``(coeffs (R, ndeg), x (R, Q))``,
+    contiguous, where the coefficients' batch shape, left-padded with ones
+    to the rank of the output ``shape``, is ``shape[:k] + (1,) * t``: R =
+    prod(shape[:k]) rows of their own coefficients and Q = prod(shape[k:])
+    points a row, ``x`` broadcast to ``shape`` (a copy no larger than the
+    output).  None where coefficients are shared along a leading axis or a
+    size is 0 or does not fit the kernel's 32-bit sizes."""
+    ndeg = coeffs.shape[-1]
+    batch = (1,) * (len(shape) - coeffs.dim() + 1) + tuple(coeffs.shape[:-1])
+    k = len(batch)
+    while k and batch[k - 1] == 1:
+        k -= 1
+    if batch[:k] != tuple(shape[:k]):
+        return None
+    R, Q = math.prod(shape[:k]), math.prod(shape[k:])
+    if min(R, Q, ndeg) < 1 or max(R, Q, ndeg) >= 2**31:
+        return None
+    return (coeffs.reshape(R, ndeg).contiguous(),
+            x.broadcast_to(shape).reshape(R, Q).contiguous())
+
+
+def legendre_series_rows_plain(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on any device: ``out[r, q] =
+    sum_l coeffs[r, l] P_l(x[r, q])``, ``coeffs`` (R, ndeg), ``x`` (R, Q),
+    by the plain loop's steps and roundings."""
+    return _clenshaw(coeffs[:, None, :], x, x.shape)
+
+
+def _check(coeffs: torch.Tensor, x: torch.Tensor) -> None:
+    name = "legendre_series_rows"
+    if not _on_card(coeffs, x):
+        raise ValueError(f"{name}: coeffs and x must be CUDA tensors on one device")
+    if x.dtype not in _build.SUFFIX or coeffs.dtype != x.dtype:
+        raise TypeError(f"{name}: float32 or float64 expected, got {coeffs.dtype}/{x.dtype}")
+    if coeffs.dim() != 2 or x.dim() != 2 or coeffs.shape[0] != x.shape[0] or 0 in coeffs.shape + x.shape:
+        raise ValueError(f"{name}: coeffs (R, ndeg) and x (R, Q), R, Q, ndeg >= 1, expected, got "
+                         f"{tuple(coeffs.shape)}, {tuple(x.shape)}")
+    if max(coeffs.shape + x.shape) >= 2**31:
+        raise ValueError(f"{name}: sizes below 2**31 expected, got {tuple(coeffs.shape)}, {tuple(x.shape)}")
+    if not (coeffs.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{name}: contiguous operands expected")
+    if torch.is_grad_enabled() and (coeffs.requires_grad or x.requires_grad):
+        raise NotImplementedError(f"{name}: the kernel takes no gradient; legendre_series_bcast routes "
+                                  "operands that require one through the plain loop")
+    _build.refuse_tangents(name, (coeffs, x), "legendre_series_bcast routes dual operands through the plain loop")
+
+
+def legendre_series_rows(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``out[r, q] = sum_l coeffs[r, l] P_l(x[r, q])`` for ``coeffs``
+    (R, ndeg) and ``x`` (R, Q).  CPU tensors take
+    `legendre_series_rows_plain`; CUDA tensors launch the kernel (counted
+    under ``legendre_series``) or raise."""
+    if not (coeffs.is_cuda or x.is_cuda):
+        return legendre_series_rows_plain(coeffs, x)
+    _check(coeffs, x)
+    out = torch.empty_like(x)
+    _build.launch("legendre_series", x.dtype, x.device, coeffs.data_ptr(), x.data_ptr(), out.data_ptr(),
+                  x.shape[0], x.shape[1], coeffs.shape[1])
+    return out

@@ -40,7 +40,9 @@ The spans (``device`` marks those timed on the device as well):
 Each kernel launch (``ops/_build.py::launch``) is counted under
 ``launches``, by the kernel's source name (``eig_stage``, ``bvp_fused``,
 ``bvp_fused_wide``, ``blocktri``, ``blocktri_wide``, ``jacobi_eigh``,
-``jacobi_eigh_wide``), with or without a profiler.
+``jacobi_eigh_wide``, ``legendre_series``), with or without a profiler:
+``legendre_series`` once a Legendre series on the card, three a batched NT
+correction.
 
 The counters: ``h2d_bytes``, the bytes the port copies from host memory
 to a CUDA device; ``host_syncs``, each point where the port blocks the
@@ -48,7 +50,8 @@ host on the device (each such pageable copy, each device value read on
 the host); ``planck_rule_hits`` and ``planck_rule_builds``, the Planck
 route's rule lookups served by its cache and those that built the rule;
 ``legendre_terms``, the Clenshaw steps of the Legendre series
-(``ops/legendre.py::legendre_series_bcast``, one a moment of each series);
+(``ops/legendre.py::legendre_series_bcast``, one a moment of each series,
+counted alike whether the kernel or the plain loop runs them);
 ``eig_stage_rows24``, the eigen-stage kernel's launches in its variant with
 24-entry rows (``ops/cuda_eig.py``, 16 < n <= 24).
 """
