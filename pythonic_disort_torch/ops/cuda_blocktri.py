@@ -36,9 +36,12 @@ Both are differentiable (first order, reverse mode), each through a
 ``torch.autograd.Function`` whose backward solves the transposed
 block-tridiagonal system with the generic kernel, as the JAX package's
 custom VJPs do: `solve_block_tridiag_lanes_cuda` returns the outer-product
-cotangents of its blocks, `solve_bvp_fused` pulls them back through
-`blocktri.assemble_bvp_blocks`.  On CPU tensors the same Functions run
-the plain versions.
+cotangents of its blocks; `solve_bvp_fused` writes the transposed blocks
+from its operands (`transposed_bvp_blocks`) and pulls the cotangents back
+through the assembly in closed form (`bvp_cotangents`), so that its
+backward holds three blocks' worth of memory at once, not nine.  Each
+backward is a ``disort.grad.bvp`` span.  On CPU tensors the same
+Functions run the plain versions.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from . import _build
 from .blocktri import assemble_bvp_blocks, solve_block_tridiag_lanes
 
@@ -206,8 +210,76 @@ class _BlockTridiag(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, ct):
         lower_t, diag_t, upper_t, x = ctx.saved_tensors
-        y = _blocktri(*transposed_system(lower_t, diag_t, upper_t), ct.contiguous())
-        return (*block_cotangents(y, x), y)
+        with span("disort.grad.bvp", ct.device):
+            y = _blocktri(*transposed_system(lower_t, diag_t, upper_t), ct.contiguous())
+            return (*block_cotangents(y, x), y)
+
+
+# layers a slab of the pull-back's contraction: bounds its temporaries to
+# (SLAB, 2N, N, B)
+SLAB = 8
+
+
+def _column_scales(decay_t):
+    """The column scales ``ct = [d | 1]`` and ``cb = [1 | d]`` (L, 2N, B)
+    of `blocktri.assemble_bvp_blocks`'s ``Mtop`` and ``Mbot``."""
+    one = torch.ones_like(decay_t)
+    return torch.cat([decay_t, one], dim=1), torch.cat([one, decay_t], dim=1)
+
+
+def transposed_bvp_blocks(Gt, decay_t, bt_rows):
+    """`transposed_system` of `blocktri.assemble_bvp_blocks`'s blocks, each
+    entry written once from the operands into its own (L, 2N, 2N, B)
+    tensor: no assembled block and no temporary of a block's size.
+
+    With the column scales ``ct``, ``cb`` (`_column_scales`) and ``H =
+    G^T`` per layer, block row l of A^T holds ``diag[l] = [s_l H[:, N:] cb |
+    H[:, :N] ct]`` (s_0 = 1, else -1; the right half is ``bt_rows^T`` in the
+    last layer), ``lower[l] = [0 | -H[:, :N] cb]`` (l >= 1) and ``upper[l] =
+    [H[:, N:] ct | 0]`` (l <= L - 2)."""
+    N = Gt.shape[1] // 2
+    ct, cb = (c[:, :, None] for c in _column_scales(decay_t))     # (L, 2N, 1, B)
+    H = Gt.transpose(1, 2)
+    lower, diag, upper = (torch.zeros_like(Gt) for _ in range(3))
+    torch.mul(H[:, :, N:], cb, out=diag[:, :, :N])
+    diag[1:, :, :N].neg_()
+    torch.mul(H[:-1, :, :N], ct[:-1], out=diag[:-1, :, N:])
+    diag[-1, :, N:] = bt_rows.transpose(0, 1)
+    torch.mul(H[1:, :, :N], cb[1:], out=lower[1:, :, N:])
+    lower[1:, :, N:].neg_()
+    torch.mul(H[:-1, :, N:], ct[:-1], out=upper[:-1, :, :N])
+    return lower, diag, upper
+
+
+def bvp_cotangents(Gt, decay_t, y, x):
+    """Cotangents of ``Gt``, ``decay_t`` and ``bt_rows`` of a BVP solve
+    whose solution is ``x`` and adjoint solution ``y`` (L, 2N, B): the
+    block cotangents ``-y[l] x[l']^T`` (`block_cotangents`) pulled back
+    through `blocktri.assemble_bvp_blocks` in closed form.
+
+    Layer l's ``Mtop`` takes ``a[l] x[l]^T`` and its ``Mbot``
+    ``b[l] x[l]^T``, with ``z[l] = [y[l][N:]; y[l+1][:N]]``, ``a[l] =
+    -z[l]`` (0 in the last layer), ``b[l] = z[l-1]`` and ``b[0] = [0;
+    -y[0][:N]]``.  So ``dG[l] = a[l] (x ct)[l]^T + b[l] (x cb)[l]^T``,
+    ``dd[l][j] = x[l][j] (a[l]^T G[l])[j] + x[l][N+j] (b[l]^T G[l])[N+j]``
+    and ``dbt_rows = -y[L-1][N:] x[L-1]^T``: one tensor of the blocks'
+    size, the cotangent of ``Gt`` itself."""
+    L, n2 = Gt.shape[:2]
+    N = n2 // 2
+    z = torch.cat([y[:-1, N:], y[1:, :N]], dim=1)                  # (L-1, 2N, B)
+    a = torch.cat([-z, torch.zeros_like(y[:1])])
+    b = torch.cat([torch.cat([torch.zeros_like(y[0, :N]), -y[0, :N]])[None], z])
+    xct, xcb = (x * c for c in _column_scales(decay_t))
+    dG = a[:, :, None] * xct[:, None]
+    dG.addcmul_(b[:, :, None], xcb[:, None])
+    dd = torch.empty_like(decay_t)
+    for s in range(0, L, SLAB):
+        sl = slice(s, s + SLAB)
+        ga = (a[sl, :, None] * Gt[sl, :, :N]).sum(1)                # (SLAB, N, B)
+        gb = (b[sl, :, None] * Gt[sl, :, N:]).sum(1)
+        torch.addcmul(x[sl, :N] * ga, x[sl, N:], gb, out=dd[sl])
+    dbt = -y[-1, N:, None] * x[-1, None]
+    return dG, dd, dbt
 
 
 class _BvpFused(torch.autograd.Function):
@@ -221,15 +293,11 @@ class _BvpFused(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, ct):
         Gt, decay_t, bt_rows, x = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = tuple(t.detach().requires_grad_() for t in (Gt, decay_t, bt_rows))
-            blocks = assemble_bvp_blocks(*inputs)
-        y = _blocktri(*transposed_system(*(b.detach() for b in blocks)), ct.contiguous())
-        # pull the block cotangents back through the (bi)linear assembly;
-        # at L = 1 the lower and upper blocks are constant zeros
-        live = [(b, c) for b, c in zip(blocks, block_cotangents(y, x)) if b.requires_grad]
-        grads = torch.autograd.grad([b for b, _ in live], inputs, [c for _, c in live], allow_unused=True)
-        return (*grads, y)
+        with span("disort.grad.bvp", ct.device):
+            blocks = transposed_bvp_blocks(Gt, decay_t, bt_rows)
+            y = _blocktri(*blocks, ct.contiguous())
+            del blocks
+            return (*bvp_cotangents(Gt, decay_t, y, x), y)
 
 
 def solve_bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from . import cuda_jacobi
 
 
@@ -138,7 +139,7 @@ class _JacobiEigh(torch.autograd.Function):
     the JAX package's ``_eigh_jvp_rule``: with ``S = V^T dA V``,
     ``dw = diag(S)`` and ``dV = V (F o S)`` (`_gap_inverse`).  ``jvp`` is
     that differential at the outputs as returned (sorted or not), and
-    ``backward`` its transpose."""
+    ``backward`` its transpose, a ``disort.grad.eig`` span."""
 
     @staticmethod
     def forward(ctx, A, sweeps, sort):
@@ -164,10 +165,11 @@ class _JacobiEigh(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, w_bar, V_bar):
         w, V = ctx.saved_tensors
-        inner = torch.zeros_like(V) if V_bar is None else _gap_inverse(w) * (V.mT @ V_bar)
-        if w_bar is not None:
-            inner = inner + torch.diag_embed(w_bar)
-        return V @ inner @ V.mT, None, None
+        with span("disort.grad.eig", V.device):
+            inner = torch.zeros_like(V) if V_bar is None else _gap_inverse(w) * (V.mT @ V_bar)
+            if w_bar is not None:
+                inner = inner + torch.diag_embed(w_bar)
+            return V @ inner @ V.mT, None, None
 
 
 def jacobi_eigh(A: torch.Tensor, sweeps: int | None = None, sort: bool = True):

@@ -33,6 +33,11 @@ The spans (``device`` marks those timed on the device as well):
 - ``disort.planck.emission``, ``disort.planck.rule``: the device Planck
   route's band integral, and the lookup of the band's cached quadrature
   rule, built on the host and copied on a miss (``ops/planck.py``);
+- ``disort.grad.bvp`` (device): the backward of a block-Thomas solve, the
+  fused boundary-value one's (its transposed blocks, kernel 3's transposed
+  solve, the pull-back to its operands) and the generic one's
+  (``ops/cuda_blocktri.py``); ``disort.grad.eig`` (device): the backward
+  of the symmetric eigendecomposition (``ops/jacobi.py``);
 - ``disort.build``: loading a kernel (``ops/_build.py``).  Its seconds,
   and whether nvcc ran, are recorded under ``builds`` with or without a
   profiler: a load happens once a kernel a process.

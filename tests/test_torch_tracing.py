@@ -1,9 +1,10 @@
 """The port's recorder (``utils/profiling.py``: ``span``, ``count``,
 ``recorded``, ``reset``) on the CPU: nothing recorded without a profiler,
-the stage spans of the batched solve, the Planck route and the NT
-intensity under one, how they nest, that none lies on a device timeline,
-that outputs do not change, and the kernel loads and launches it records
-always."""
+the stage spans of the batched solve, the Planck route, the NT intensity
+and the backward rules under one, how they nest, that none lies on a
+device timeline, that outputs do not change, the kernel loads and
+launches it records always, and the benchmark's readers of the gradient
+spans and rooflines on hand-made records."""
 
 import sys
 import threading
@@ -22,6 +23,7 @@ R, L, NQ, NF = 4, 5, 8, 4
 SOLVE = {"disort.entry", "disort.entry.copy", "disort.entry.legendre", "disort.solve.assemble", "disort.solve.eig",
          "disort.solve.operands", "disort.solve.bvp", "disort.solve.outputs"}
 NT = {"disort.eval.nt", "disort.eval.nt.series", "disort.eval.nt.layers"}
+GRAD = {"disort.grad.bvp", "disort.grad.eig"}
 
 
 @pytest.fixture(autouse=True)
@@ -77,10 +79,22 @@ def nt_general_call():
     return pt.solve_intensity(p, p.tau_arr * 0.5, phi)
 
 
+def jacobian_call():
+    """u at tau = 0 on the general path with NT, and d sum(u) / d (tau_arr,
+    omega_arr): the backward rules of the BVP solve and of the Jacobi."""
+    a = _arrays()
+    tau, om = (torch.tensor(a[k], requires_grad=True) for k in ("tau", "om"))
+    p = pt.make_batched_problem(_config(NF, only_flux=False, nt_correct=True), tau, om, a["leg"], a["mu0"], a["I0"],
+                                phi0=a["phi0"], f_arr=a["f"], dtype=torch.float64, device="cpu")
+    u = pt.solve_intensity(p, torch.zeros((R, 1), dtype=torch.float64), torch.tensor(np.tile([0.0, 1.6, 3.1], (R, 1))))
+    return (u.detach(), *torch.autograd.grad(u.sum(), (tau, om)))
+
+
 CALLS = {"flux": (flux_call, SOLVE | {"disort.eval.fluxes"}),
          "planck": (planck_call, {"disort.planck.emission", "disort.planck.rule"}),
          "nt_probes": (nt_probes_call, SOLVE | NT | {"disort.eval.modes"}),
-         "nt_general": (nt_general_call, SOLVE | NT | {"disort.eval.modes"})}
+         "nt_general": (nt_general_call, SOLVE | NT | {"disort.eval.modes"}),
+         "jacobian": (jacobian_call, SOLVE | NT | GRAD | {"disort.eval.modes"})}
 
 
 def _profiled(fn):
@@ -94,6 +108,34 @@ def test_nothing_recorded_without_a_profiler():
     rec = profiling.recorded()
     assert rec["spans"] == {} and rec["counters"] == {} and rec["builds"] == {}
     assert profiling.span("disort.entry") is profiling.span("disort.solve.eig", torch.device("cpu"))
+
+
+def test_backward_records_nothing_without_a_profiler():
+    """The backward rules' spans are off, as every span, with no profiler
+    running."""
+    jacobian_call()
+    rec = profiling.recorded()
+    assert rec["spans"] == {} and rec["counters"] == {}
+
+
+def test_block_thomas_backward_records_its_span():
+    """The generic block-Thomas Function's backward (the transposed solve
+    and the block cotangents) is a ``disort.grad.bvp`` span, one a call."""
+    from pythonic_disort_torch.ops.cuda_blocktri import solve_block_tridiag_lanes_cuda
+
+    rng = np.random.default_rng(5)
+    n, B = 3, 2
+    blocks = [torch.tensor(rng.standard_normal((L, n, n, B)) + (6.0 * np.eye(n)[None, :, :, None] if k == 1 else 0),
+                           requires_grad=True) for k in range(3)]
+    rhs = torch.tensor(rng.standard_normal((L, n, B)), requires_grad=True)
+    call = lambda: torch.autograd.grad(solve_block_tridiag_lanes_cuda(*blocks, rhs).sum(), (*blocks, rhs))
+    plain = call()
+    assert profiling.recorded()["spans"] == {}
+    traced, _ = _profiled(call)
+    rec = profiling.recorded()
+    assert set(rec["spans"]) == {"disort.grad.bvp"} and rec["spans"]["disort.grad.bvp"]["calls"] == 1
+    assert rec["spans"]["disort.grad.bvp"]["device_ms"] is None
+    assert all(torch.equal(x, y) for x, y in zip(plain, traced))
 
 
 @pytest.mark.parametrize("call", sorted(CALLS))
@@ -256,3 +298,67 @@ def test_totals_under_threads(monkeypatch):
         sys.setswitchinterval(old)
     rec = profiling.recorded()
     assert rec["counters"] == {"n": 16000} and rec["spans"]["disort.test"]["calls"] == 16000
+
+
+def _metric(monkeypatch, name):
+    """The benchmark's reader ``metrics/<name>.py`` and its ``yardstick``
+    package, the benchmark folder on the path."""
+    import importlib
+    import importlib.util
+    import pathlib
+
+    bench = pathlib.Path(__file__).resolve().parents[1] / "benchmark"
+    monkeypatch.syspath_prepend(str(bench))
+    spec = importlib.util.spec_from_file_location(name, bench / "metrics" / f"{name}.py")
+    metric = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(metric)
+    return metric, importlib.import_module("yardstick.recorder")
+
+
+@pytest.mark.parametrize("name,span", [("grad_bvp_ms_per_chunk", "disort.grad.bvp"),
+                                       ("grad_eig_ms_per_chunk", "disort.grad.eig")])
+def test_gradient_span_readers_read_the_record(monkeypatch, name, span):
+    """``grad_bvp_ms_per_chunk`` and ``grad_eig_ms_per_chunk`` on records
+    made by hand: the span's device ms per traced step; None without a
+    trace, without the span (a port without the spans) or without a device
+    extent (the CPU)."""
+    metric, recorder = _metric(monkeypatch, name)
+    ctx = types.SimpleNamespace(trace=types.SimpleNamespace(spans=lambda name: []), trace_steps=4)
+    rec = {"spans": {span: {"calls": 4, "host_ms": 2.0, "device_ms": 10.0},
+                     "disort.solve.bvp": {"calls": 4, "host_ms": 1.0, "device_ms": 7.0}},
+           "counters": {}, "builds": {}, "launches": {}}
+    monkeypatch.setattr(recorder, "record", lambda: rec)
+    assert metric.read(ctx) == 2.5
+    assert metric.read(types.SimpleNamespace(trace=None, trace_steps=4)) is None
+    rec["spans"][span]["device_ms"] = None
+    assert metric.read(ctx) is None
+    del rec["spans"][span]
+    assert metric.read(ctx) is None
+    monkeypatch.setattr(recorder, "record", lambda: None)
+    assert metric.read(ctx) is None
+
+
+@pytest.mark.parametrize("stage,kernel,shape,flops,nbytes", [
+    # kernel 3 on the cloud_jacobian step's transposed solve: L = 60, n = 48, 112 x 48 lanes
+    ("blocktri", "blocktri_kernel", {"L": 60, "n": 48, "lanes": 5376},
+     59 * (2 * 48 * 48 * 49 + 47 * (3 * 48 * 48 + 48) + 2 * 48 * 48) + 47 * 48 * 49, (3 * 60 * 48 * 48 + 2 * 60 * 48) * 8),
+    # kernel 4 on its eigenproblems: n = 24, 9 sweeps in float64, 322 560 lanes
+    ("jacobi", "jacobi_eigh_kernel", {"n": 24, "lanes": 322560},
+     9 * (6 * 24 * 24 * 23 + 10 * 24 * 23), (2 * 24 * 24 + 24) * 8)])
+def test_gradient_roofline_readers(monkeypatch, stage, kernel, shape, flops, nbytes):
+    """``blocktri_roofline`` and ``jacobi_roofline`` on a trace made by hand:
+    the least time of the traced steps' work at the H100's float64 and HBM
+    peaks over the kernels' device seconds, in %; None without a trace,
+    without the kernel or without the stage's shapes."""
+    metric, _ = _metric(monkeypatch, f"{stage}_roofline")
+    seconds = 0.25
+    trace = types.SimpleNamespace(stage_seconds=lambda names: seconds if names == {kernel} else None)
+    ctx = types.SimpleNamespace(trace=trace, trace_steps=4, shapes={stage: shape}, dtype="float64",
+                                stage_kernels={stage: {kernel}, "other": {"x"}})
+    least = 4 * shape["lanes"] * max(flops / 34e12, nbytes / 3.35e12)
+    assert metric.read(ctx) == pytest.approx(100.0 * least / seconds, rel=1e-12)
+    assert 0 < metric.read(ctx) < 100
+    assert metric.read(types.SimpleNamespace(**{**vars(ctx), "trace": None})) is None
+    assert metric.read(types.SimpleNamespace(**{**vars(ctx), "shapes": {}})) is None
+    ctx.stage_kernels[stage] = {"not_run_kernel"}
+    assert metric.read(ctx) is None
