@@ -414,25 +414,28 @@ def capture_kernel_inputs(problem, tau, phi=None):
     """Run the batched path once, keeping copies of its kernels' operands:
     ``eig`` (even N <= 32) or ``jacobi_wide`` (the congruence M, other N),
     ``bvp`` (the operands of ``solve_bvp_fused``, any 2N; kernel 2 or 7 up
-    to 2N = 64) and ``blocktri`` (the blocks it assembles above 2N = 64;
-    kernel 6).
+    to 2N = 64), ``blocktri`` (the blocks it assembles above 2N = 64;
+    kernel 6) and ``operands`` (the keyword arguments of ``bvp_operands``).
     With azimuths ``phi`` the path is ``solve_intensity`` with one probe per
     layer at ``tau``, else ``solve_fluxes``."""
     from pythonic_disort_torch import solve_fluxes, solve_intensity
     from pythonic_disort_torch.models.disort import batch_solve as bs_mod
     from pythonic_disort_torch.ops import cuda_blocktri, cuda_jacobi
     from pythonic_disort_torch.ops import eig as eig_mod
+    from pythonic_disort_torch.tools.check_operands import as_kwargs
 
     with recording(eig_mod, "eig_stage_lanes") as eig, \
             recording(cuda_jacobi, "jacobi_eigh_lanes_wide") as jacobi_wide, \
             recording(bs_mod, "solve_bvp_fused") as bvp, \
-            recording(cuda_blocktri, "solve_block_tridiag_lanes_cuda") as blocktri:
+            recording(cuda_blocktri, "solve_block_tridiag_lanes_cuda") as blocktri, \
+            recording(bs_mod, "bvp_operands") as operands:
         if phi is None:
             solve_fluxes(problem, tau)
         else:
             solve_intensity(problem, tau, phi, probes_per_layer=True)
     return {"eig": eig.operands, "jacobi_wide": jacobi_wide.operands, "bvp": bvp.operands,
-            "blocktri": blocktri.operands}
+            "blocktri": blocktri.operands,
+            "operands": None if operands.operands is None else as_kwargs(operands.operands)}
 
 
 # ----------------------------------------------------------------- timing
@@ -1301,6 +1304,50 @@ def phase_legendre():
                 "function", ptxas=ptxas)
 
 
+def phase_operands(main_ops):
+    """The BVP operands kernel against its plain version on the card
+    (``tools/check_operands.py``'s check: ``Gt`` bit for bit, ``B_l``
+    within its limit of each lane's largest, one launch a call), with and
+    without the beam, on the operands of phase 4's main-path chunk
+    (float32) and of phase 8's intensity chunk built in float64; its ptxas
+    spills; timed at the intensity chunk's operands on both routes."""
+    import torch
+    from pythonic_disort_torch.ops import _build, operands
+    from pythonic_disort_torch.tools.check_operands import bound_ms, check_bits, without_beam
+
+    log("phase 3: the BVP operands kernel against its plain version")
+    problem, tau, phi = intensity_problem(bench_arrays(INT_COLS, seed=7), torch.float64, "cuda")
+    chunk = capture_kernel_inputs(problem, tau, phi)["operands"]
+    del problem
+    worst = {}
+    for what, ops in (("main-path chunk, f32", main_ops["operands"]), ("intensity chunk, f64", chunk)):
+        for beam, o in (("beam", ops), ("no beam", without_beam(ops))):
+            ok, worst[what, beam] = check_bits(f"  bvp_operands n={o['X'].shape[0]} L={o['L']} S={o['S']} "
+                                               f"{o['X'].shape[2]} lanes ({what}, {beam})", o)
+            check(ok, f"bvp_operands ({what}, {beam}): Gt the plain version's bits, B_l within its limit, "
+                  "one launch")
+    ms = cuda_ms(lambda: operands.bvp_operands(**chunk), 20)
+    plain_ms = cuda_ms(lambda: operands.bvp_operands_plain(**chunk), 3)
+    bound = bound_ms(chunk)
+    ptxas = {v.args: dict(registers=v.registers, spill_stores=v.spill_stores, spill_loads=v.spill_loads)
+             for v in _build.current("bvp_operands").ptxas()}
+    for args, r in ptxas.items():
+        log(f"  bvp_operands variant <{args}>: {r['registers']} registers, "
+            f"{r['spill_stores'] + r['spill_loads']} B spilled")
+    log(f"  bvp_operands at the intensity chunk's operands, f64: {ms:.4f} ms, plain version {plain_ms:.3f} ms, "
+        f"bound {bound:.4f} ms (bytes)")
+    check(len(ptxas) == 4 and all(r["spill_stores"] + r["spill_loads"] == 0 for r in ptxas.values()),
+          "bvp_operands: four variants, none spills")
+    X = chunk["X"]
+    return dict(name="bvp_operands", route="cuda", source="pythonic_disort_torch/csrc/bvp_operands.cu",
+                replaces=None, replaces_function="none: pythonic_disort_tpu/models/disort/batch_solve.py builds "
+                "G, its L-major copy and the beam's particular solution in jnp, no Pallas kernel",
+                launches=None, max_abs_err=None, max_err=max(worst.values()), gt_equal_bits=True, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=None, library_call=None,
+                timed_at=f"n={X.shape[0]} L={chunk['L']} S={chunk['S']} {X.shape[2]} lanes float64, "
+                "the intensity chunk's operands with the beam", ptxas=ptxas)
+
+
 def phase_main_path(arrs, problem, tau, kernels):
     import torch
     from pythonic_disort_torch import solve_fluxes
@@ -1316,6 +1363,7 @@ def phase_main_path(arrs, problem, tau, kernels):
         k["launches"], k["launches_on"] = launches[k["name"]], "batched flux path, one chunk"
     check(launches["eig_stage"] > 0 and launches["bvp_fused"] > 0,
           "the eigen and fused BVP kernels launched on the main path")
+    check(launches["bvp_operands"] == 1, "the BVP operands kernel once a chunk")
     check(launches["blocktri"] == 0 and launches["jacobi_eigh"] == 0
           and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0
           and launches["bvp_fused_wide"] == 0,
@@ -1692,7 +1740,7 @@ def gradient_mu0(arrs, by_name, omega_step, dist):
     log(f"  (m) d loss / d mu0 of the same chunk, mu0 the leaf, f32, cuda")
     step = gradient_step(arrs, torch.float32, "cuda", wrt="mu0")
     g, launches = launched(step, "(m) one d loss / d mu0 step", ("eig_stage", "bvp_fused", "blocktri"),
-                           ("jacobi_eigh", "jacobi_eigh_wide", "blocktri_wide", "bvp_fused_wide"))
+                           ("jacobi_eigh", "jacobi_eigh_wide", "blocktri_wide", "bvp_fused_wide", "bvp_operands"))
     check(launches["eig_stage"] == 1 and launches["bvp_fused"] == 1,
           "(m) the eigen kernel and the fused BVP kernel once each: the eigen operands take no gradient")
     for name in ("eig_stage", "bvp_fused", "blocktri"):
@@ -2168,8 +2216,8 @@ def phase_intensity(kernels, card):
 
     t_phase = time.perf_counter()
     by_name = {k["name"]: k for k in kernels}
-    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused")]
-    nt_on = ("eig_stage", "bvp_fused", "legendre_series")
+    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused", "bvp_operands")]
+    nt_on = ("eig_stage", "bvp_fused", "bvp_operands", "legendre_series")
     nt_others = [k for k in others if k not in nt_on]
     S = INT_COLS * NBANDS
     log(f"phase 8: batched intensity path, {INT_COLS} columns x {NBANDS} bands, L={NLAYERS}, NQuad={NQUAD}, "
@@ -2225,10 +2273,12 @@ def phase_intensity(kernels, card):
     p_act, _ = longwave_problem(lw, torch.float32, "cuda", only_flux=False)
     fluxes = lambda: solve_fluxes(p_flux, lw_tau)
     actinic = lambda: solve_actinic(p_act, lw_tau)
-    f_out, launches = launched(fluxes, "(c) one longwave flux chunk", ("eig_stage", "bvp_fused"), others)
+    f_out, launches = launched(fluxes, "(c) one longwave flux chunk", ("eig_stage", "bvp_fused", "bvp_operands"),
+                               others)
     for k in ("eig_stage", "bvp_fused"):
         by_name[k]["launches_longwave_chunk"] = launches[k]
-    act_out, _ = launched(actinic, "(c) one longwave actinic chunk", ("eig_stage", "bvp_fused"), others)
+    act_out, _ = launched(actinic, "(c) one longwave actinic chunk", ("eig_stage", "bvp_fused", "bvp_operands"),
+                          others)
     t0 = time.perf_counter()
     lw64 = rows(lw, LW_REF_ROWS)
     ref = [*solve_fluxes(*longwave_problem(lw64, torch.float64, "cpu", only_flux=True)),
@@ -2354,7 +2404,7 @@ def phase_longwave(kernels, card):
 
     t_phase = time.perf_counter()
     by_name = {k["name"]: k for k in kernels}
-    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused")]
+    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused", "bvp_operands")]
     S, nref = CHUNK_COLS * NBANDS, REF_COLS * NBANDS
     log(f"phase 9: longwave chunk from temperatures, {CHUNK_COLS} columns x {NBANDS} bands "
         f"({LW_RANGE[0]:g}-{LW_RANGE[1]:g} cm^-1), L={NLAYERS}, NQuad={NQUAD}, NFourier=1, delta-M, no beam, "
@@ -2366,7 +2416,8 @@ def phase_longwave(kernels, card):
 
     # (a) temperatures -> sources -> fluxes
     chunk = lambda: temperature_chunk(arrs, T)
-    out, launches = launched(chunk, "(a) one longwave chunk from temperatures", ("eig_stage", "bvp_fused"), others)
+    out, launches = launched(chunk, "(a) one longwave chunk from temperatures",
+                             ("eig_stage", "bvp_fused", "bvp_operands"), others)
     for k in ("eig_stage", "bvp_fused"):
         by_name[k]["launches_temperature_chunk"] = launches[k]
     check(all(x.shape == (S, NLAYERS) and torch.isfinite(x).all().item() for x in out),
@@ -2533,9 +2584,9 @@ def phase_sweep(kernels, card):
         first, times, first_ms = sweep(True)
         launches = Counter(profiling.recorded()["launches"])
         log(f"  launches in the first overlapped sweep: {launches}; {first_ms:.3f} ms")
-        check(launches["eig_stage"] == launches["bvp_fused"] == n_chunks
-              and sum(launches.values()) == 2 * n_chunks,
-              f"the sweep launches kernels 1 and 2 once a chunk ({n_chunks} chunks), no other")
+        check(launches["eig_stage"] == launches["bvp_fused"] == launches["bvp_operands"] == n_chunks
+              and sum(launches.values()) == 3 * n_chunks,
+              f"the sweep launches kernels 1 and 2 and the operands kernel once a chunk ({n_chunks} chunks), no other")
         for name in ("eig_stage", "bvp_fused"):
             next(k for k in kernels if k["name"] == name)["launches_sweep"] = launches[name]
         check(sorted(times) == list(range(n_chunks)), f"run returns the times of all {n_chunks} chunks")
@@ -2700,8 +2751,9 @@ def phase_mesh(problem, tau, kernels, card, sweep_out):
     torch.cuda.synchronize()
     launches = Counter(profiling.recorded()["launches"])
     log(f"  launches: {launches}; collectives: {counts}")
-    check(launches["eig_stage"] == 1 and launches["bvp_fused"] == 1 and sum(launches.values()) == 2,
-          "solve_fluxes_sharded launches kernels 1 and 2 once each, no other")
+    check(launches["eig_stage"] == launches["bvp_fused"] == launches["bvp_operands"] == 1
+          and sum(launches.values()) == 3,
+          "solve_fluxes_sharded launches kernels 1 and 2 and the operands kernel once each, no other")
     check(all(v == 0 for v in counts.values()), "count_collectives reads zero for every kind")
     check(all(torch.equal(a, b) for a, b in zip(outs, solve_fluxes(problem, tau))),
           "solve_fluxes_sharded equals solve_fluxes bit for bit")
@@ -2829,7 +2881,7 @@ def main():
     main_ops = capture_kernel_inputs(problem, tau)
     ops48, kernels = phase_kernels(main_ops)
     phase_intensity_kernels(kernels)
-    kernels += phase_wide_kernels() + [phase_bvp_wide(ops48), phase_legendre()]
+    kernels += phase_wide_kernels() + [phase_bvp_wide(ops48), phase_legendre(), phase_operands(main_ops)]
     chunk_ms = phase_main_path(arrs, problem, tau, kernels)
     phase_trace(lambda: solve_fluxes(problem, tau), "phase 4, one main-path chunk", chunk_ms)
     phase_single_column(kernels)

@@ -4,8 +4,8 @@ The discrete-ordinates radiative-transfer solver on an NVIDIA H100, on
 two paths: the batched solve over columns x bands (`solve_fluxes`,
 `solve_intensity`, `solve_actinic`) and the single-column solve behind
 the drop-in `pydisort` API.  The JAX package beside it is the
-reference; this package imports neither JAX nor it.  Five stages run
-eight CUDA kernels written for Hopper (``csrc/``), built with nvcc at
+reference; this package imports neither JAX nor it.  Six stages run
+nine CUDA kernels written for Hopper (``csrc/``), built with nvcc at
 first use and launched through ``ops/_build.py``:
 
 - the fused eigen stage at even N <= 32 (kernel 1, ``eig_stage.cu``;
@@ -21,7 +21,10 @@ first use and launched through ``ops/_build.py``:
   at odd n and n > 32; the eigen stage of every gradient and of the
   widths kernel 1 does not take.
 - the Legendre series of the NT correction (``legendre_series.cu``), one
-  launch a series where no gradient or tangent is taken.
+  launch a series where no gradient or tangent is taken;
+- the boundary-value operands of the batched path (``bvp_operands.cu``):
+  the eigenvector blocks in the BVP's layout and the beam's particular
+  solution, one launch a solve where no gradient or tangent is taken.
 
 Both paths take first-order reverse-mode gradients through
 ``torch.autograd``.  The reference-compatible ``subroutines`` namespace

@@ -13,6 +13,9 @@ crosses the lane dimension:
   matmuls over the Legendre contraction;
 - the eigen stage is `ops.eig.disort_eigh_lanes` (CUDA kernel 1 at even
   N <= 32; at other N its Cholesky + Jacobi route, CUDA kernel 5);
+- the eigenvector blocks in the BVP's layout ``Gt`` and the beam's
+  particular solution are `ops.operands.bvp_operands` (one launch of
+  CUDA kernel ``bvp_operands.cu`` on the card);
 - the BVP is `ops.cuda_blocktri.solve_bvp_fused` at every 2N, fed the
   eigenvector blocks, decays and bottom boundary rows; it routes by width
   (CUDA kernel 2 at 2N <= 32, kernel 7 at 34 <= 2N <= 64; wider systems,
@@ -34,14 +37,10 @@ import torch
 from ...ops.cuda_blocktri import solve_bvp_fused
 from ...ops.eig import disort_eigh_lanes
 from ...ops.legendre import normalized_assoc_legendre
+from ...ops.operands import bvp_operands, mat_lanes, mode0_blocks
 from .solve import _power_ladder, _tables, affine_transform_poly_coeffs, iso_particular_tensor, iso_poly_eval
 from ...utils.profiling import span
 from .types import DisortProblem, DisortSolution
-
-
-def _mat_lanes(A, x):
-    """(n, k, q), (k, q) -> (n, q)."""
-    return torch.einsum("ikq,kq->iq", A, x)
 
 
 def solve_batched(problem: DisortProblem) -> DisortSolution:
@@ -147,17 +146,13 @@ def _solve(problem: DisortProblem, probe_tau=None):
     with span("disort.solve.eig", device):
         K_pos, X, Y, P, Q = disort_eigh_lanes(Dp_l, Dm_l, mu, w)   # (N[, N], Q)
     with span("disort.solve.operands", device):
-        a_blk = 0.5 * (X + Y)
-        b_blk = 0.5 * (X - Y)
-        G_l = torch.cat(
-            [torch.cat([a_blk, b_blk], dim=1), torch.cat([b_blk, a_blk], dim=1)], dim=0)
         K_full = torch.cat([-K_pos, K_pos], dim=0)                   # (2N, Q)
 
         def per_mode(x_sl):
             """(S, L) per-solve quantity -> (Q,) lanes (broadcast over modes)."""
             return x_sl.T[None].expand(NF, L, S).reshape(NF * LS)
 
-        # ---- beam particular solution (reference _solve...py:209-231) ----
+        # ---- G in the BVP's L-major layout, and the beam particular solution ----
         if cfg.has_beam:
             if problem.lam_mu0 is not None:
                 lam_m0 = problem.lam_mu0.permute(1, 2, 0)           # (NF, NLeg, S), tabulated on the host
@@ -175,25 +170,17 @@ def _solve(problem: DisortProblem, probe_tau=None):
             Xp = torch.stack(xf_parts_p, dim=1).reshape(N, NF * LS)
             Xn = torch.stack(xf_parts_n, dim=1).reshape(N, NF * LS)
             xp, xn = M_inv[:, None] * Xp, -M_inv[:, None] * Xn
-            Pp, Pn = _mat_lanes(P, xp), _mat_lanes(P, xn)
-            Qp, Qn = _mat_lanes(Q, xp), _mat_lanes(Q, xn)
-            y_top = 0.5 * (Pp + Qp + Pn - Qn)
-            y_bot = 0.5 * (Pp - Qp + Pn + Qn)
-            mu0_q = per_mode(mu0[:, None].expand(S, L))
-            ycat = torch.cat([y_top, y_bot], dim=0) / (1.0 / mu0_q + K_full)
-            zt, zb = ycat[:N], ycat[N:]
-            B_l = torch.cat([_mat_lanes(a_blk, zt) + _mat_lanes(b_blk, zb),
-                             _mat_lanes(b_blk, zt) + _mat_lanes(a_blk, zb)], dim=0)
+            Gt, B_l = bvp_operands(X, Y, P, Q, K_full, L, S, xp, xn, mu0)   # (L, 2N, 2N, NF*S), (2N, Q)
         else:
+            Gt, _ = bvp_operands(X, Y, P, Q, K_full, L, S)
             B_l = torch.zeros((2 * N, NF * LS), dtype=dtype, device=device)
 
         # ---- isotropic-source particular tensor (mode 0, its LS lanes first) ----
         if cfg.has_iso:
-            QM = _mat_lanes(Q[..., :LS], M_inv[:, None].expand(N, LS))
+            QM = mat_lanes(Q[..., :LS], M_inv[:, None].expand(N, LS))
             G_inv_mu_inv = torch.cat([QM, -QM], dim=0).T              # (LS, 2N)
             s_desc = (scaled_s_poly / rescale[:, None, None]).flip(-1).transpose(0, 1).reshape(LS, Ns)
-            mathscr_b = iso_particular_tensor(
-                G_l[..., :LS].permute(2, 0, 1), K_full[:, :LS].T, G_inv_mu_inv, s_desc)
+            mathscr_b = iso_particular_tensor(mode0_blocks(Gt, S), K_full[:, :LS].T, G_inv_mu_inv, s_desc)
             mathscr_b = mathscr_b.reshape(L, S, 2 * N, Ns).transpose(0, 1)   # (S, L, 2N, Ns)
         else:
             mathscr_b = torch.zeros((S, L, 2 * N, 1), dtype=dtype, device=device)
@@ -214,7 +201,6 @@ def _solve(problem: DisortProblem, probe_tau=None):
         X_bdrf_l = X_bdrf.permute(2, 1, 0).reshape(N, NFS)
 
         # ---- BVP operands, L-major lanes (L, rows, cols, NF*S) ----
-        Gt = G_l.reshape(2 * N, 2 * N, NF, L, S).movedim(3, 0).reshape(L, 2 * N, 2 * N, NFS)
         sthick = scaled_tau_with_0[:, 1:] - scaled_tau_with_0[:, :-1]   # (S, L)
         decay_q = torch.exp(-K_pos * per_mode(sthick)[None, :])         # (N, Q)
         decay_t = decay_q.reshape(N, NF, L, S).permute(2, 0, 1, 3).reshape(L, N, NFS)

@@ -12,8 +12,8 @@ Every C entry point is declared once, from `SIGNATURES`, by `entry`;
 `launch` calls a kernel's entry on the current stream, raises on its
 error code and counts the launch (``profiling.recorded()["launches"]``,
 under the source's name).  The kernel wrappers (``cuda_eig.py``,
-``cuda_blocktri.py``, ``cuda_jacobi.py``, ``legendre.py``) check their
-operands and call `launch`.
+``cuda_blocktri.py``, ``cuda_jacobi.py``, ``legendre.py``,
+``operands.py``) check their operands and call `launch`.
 
 The A/B tools (``tools/check_*.py``) build other versions of a source
 (an earlier commit's, an edited copy) with the same flags and hash by
@@ -72,6 +72,7 @@ SIGNATURES = {
     "jacobi_eigh": {"": ([_P] * 3 + [_I] * 3 + [_P], _I)},
     "jacobi_eigh_wide": {"": ([_P] * 4 + [_I] * 4 + [_P] * 2, _I), "workspace": ([_I] * 2, ctypes.c_size_t)},
     "legendre_series": {"": ([_P] * 3 + [_I] * 3 + [_P], _I)},
+    "bvp_operands": {"": ([_P] * 10 + [_I] * 4 + [_P], _I)},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

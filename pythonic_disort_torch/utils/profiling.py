@@ -45,9 +45,11 @@ The spans (``device`` marks those timed on the device as well):
 Each kernel launch (``ops/_build.py::launch``) is counted under
 ``launches``, by the kernel's source name (``eig_stage``, ``bvp_fused``,
 ``bvp_fused_wide``, ``blocktri``, ``blocktri_wide``, ``jacobi_eigh``,
-``jacobi_eigh_wide``, ``legendre_series``), with or without a profiler:
-``legendre_series`` once a Legendre series on the card, three a batched NT
-correction.
+``jacobi_eigh_wide``, ``legendre_series``, ``bvp_operands``), with or
+without a profiler: ``legendre_series`` once a Legendre series on the
+card, three a batched NT correction; ``bvp_operands`` once a batched solve
+on the card, none where its operands take a gradient or carry a
+forward-mode tangent (``ops/operands.py``).
 
 The counters: ``h2d_bytes``, the bytes the port copies from host memory
 to a CUDA device; ``host_syncs``, each point where the port blocks the
