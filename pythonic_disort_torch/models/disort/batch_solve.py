@@ -13,6 +13,16 @@ crosses the lane dimension:
   matmuls over the Legendre contraction;
 - the eigen stage is `ops.eig.disort_eigh_lanes` (CUDA kernel 1 at even
   N <= 32; at other N its Cholesky + Jacobi route, CUDA kernel 5);
+- the beam's pole: the particular solution divides by 1/mu0 - k for every
+  eigenvalue k of a solve's (mode, layer) pairs, so right after the eigen
+  stage `solve.off_pole` moves the mu0 of each solve whose least
+  |1 - k mu0| lies below ``solve.POLE_GAP`` (1e-5 in float32, 1e-9 in
+  float64) by 2 or 4 gaps, on the device and with no host sync.  The moved
+  mu0 is the solve's from there on: the beam's Legendre table (rebuilt on
+  the device and taken for the moved solves alone, so the others keep the
+  host table's bits), the particular solution, the beam's decays, the
+  BDRF's beam term and the solution's ``mu0``, which the evaluators and the
+  NT correction read: the moved solve is exact for the moved mu0;
 - the eigenvector blocks in the BVP's layout ``Gt`` and the beam's
   particular solution are `ops.operands.bvp_operands` (one launch of
   CUDA kernel ``bvp_operands.cu`` on the card);
@@ -38,7 +48,8 @@ from ...ops.cuda_blocktri import solve_bvp_fused
 from ...ops.eig import disort_eigh_lanes
 from ...ops.legendre import normalized_assoc_legendre
 from ...ops.operands import bvp_operands, mat_lanes, mode0_blocks
-from .solve import _power_ladder, _tables, affine_transform_poly_coeffs, iso_particular_tensor, iso_poly_eval
+from .solve import (_power_ladder, _tables, affine_transform_poly_coeffs, iso_particular_tensor, iso_poly_eval,
+                    off_pole)
 from ...utils.profiling import span
 from .types import DisortProblem, DisortSolution
 
@@ -145,6 +156,15 @@ def _solve(problem: DisortProblem, probe_tau=None):
     # ---- batched eigen stage, lanes in / lanes out ----
     with span("disort.solve.eig", device):
         K_pos, X, Y, P, Q = disort_eigh_lanes(Dp_l, Dm_l, mu, w)   # (N[, N], Q)
+    if cfg.has_beam:
+        with span("disort.solve.pole", device):
+            # each solve's mu0 moved off the beam's resonance (`off_pole`);
+            # everything below reads the moved mu0
+            mu0, moved = off_pole(mu0, K_pos.reshape(-1, S))
+            lam_m0 = normalized_assoc_legendre(NF, NLeg, -mu0)     # (NF, NLeg, S), on the device
+            if problem.lam_mu0 is not None:
+                # the host's table where mu0 did not move, its bits kept
+                lam_m0 = torch.where(moved, lam_m0, problem.lam_mu0.permute(1, 2, 0))
     with span("disort.solve.operands", device):
         K_full = torch.cat([-K_pos, K_pos], dim=0)                   # (2N, Q)
 
@@ -154,11 +174,6 @@ def _solve(problem: DisortProblem, probe_tau=None):
 
         # ---- G in the BVP's L-major layout, and the beam particular solution ----
         if cfg.has_beam:
-            if problem.lam_mu0 is not None:
-                lam_m0 = problem.lam_mu0.permute(1, 2, 0)           # (NF, NLeg, S), tabulated on the host
-            else:
-                # a mu0 that takes a derivative: the table from it, on the device
-                lam_m0 = normalized_assoc_legendre(NF, NLeg, -mu0)  # (NF, NLeg, S)
             xf_parts_p, xf_parts_n = [], []
             for m in range(NF):
                 delta_m0 = 1.0 if m == 0 else 2.0

@@ -11,6 +11,14 @@ kernel 3, or kernel 6 for NQuad > 64).  The tensors
 of the problem carry no batch axis here; `batch_solve.solve_batched` is
 the batched path.
 
+The beam's pole: the particular solution divides by 1/mu0 - k for every
+eigenvalue k, which vanishes at k mu0 = 1.  `off_pole`, which both paths
+call right after the eigen stage, moves mu0 where the least |1 - k mu0|
+lies below ``POLE_GAP`` (1e-5 in float32, 1e-9 in float64) by 2 or 4
+gaps; the moved mu0 feeds the beam's Legendre table, the particular
+solution, the beam's decays, the BDRF's beam term and the solution's
+``mu0``, so the solve is exact for the moved mu0.
+
 Tables that depend on the configuration alone are cached per
 (configuration, dtype, device), so a solve copies nothing from the host
 beyond the problem itself.
@@ -29,6 +37,7 @@ from ...ops.blocktri import solve_block_tridiag
 from ...ops.eig import disort_eigh
 from ...ops.legendre import normalized_assoc_legendre, normalized_assoc_legendre_host
 from ...ops.quadrature import double_gauss
+from ...utils.profiling import count_on_device, span
 from .types import DisortProblem, DisortSolution
 
 
@@ -166,6 +175,67 @@ def iso_poly_eval(b_rows, tau, scale_tau_l=None, antiderivative=False):
     return torch.einsum("...qi,...i->...q", b_rows, tau_poly)
 
 
+# The beam's resonance.  The particular solution divides by 1/mu0 - k for
+# every eigenvalue k of every (mode, layer) of a solve, and at k mu0 = 1
+# that divisor vanishes; in float32 the eigen stage's k can make it exactly
+# 0.  `off_pole` moves the mu0 of each solve whose least |1 - k mu0| lies
+# below ``POLE_GAP`` of its dtype, as DISORT perturbs mu0 there: the
+# moved solve is the exact solution of the problem at the moved mu0.
+#
+# The gaps.  Near the pole a solve's error grows as about 0.3 u / d (u the
+# dtype's unit roundoff, d = |1 - k mu0|): float32 against float64 at
+# NQuad 32 and 60 layers reads 1e-1 at d = 1e-7 and 4.8e-4 at d = 1.8e-5.
+# A gap far above u keeps every divisor off 0 and every solve within about
+# 0.3 u / gap of the exact one (2e-3 in float32), while a moved solve
+# differs from the unmoved problem by its move, 2 or 4 gaps; the
+# benchmark, which scales a row's error by min(1, d / 1e-3), reads either
+# at about 0.3 u / 1e-3 whatever the gap.  On the card, float32 flux solves
+# at NQuad 32 set on, inside and just outside their pole read at most 8e-4
+# (1.9e-5 scaled), and every move landed.  A larger gap moves more solves,
+# and the eigenvalues of a solve with many modes crowd closer together in
+# d, where a move of a few gaps may not land.  The float64 gap trades the
+# same two errors (3e-8 off the pole, 2e-9 by a move) and moves about one
+# flux solve in 1e6; the solves it leaves alone keep their bits.
+POLE_GAP = {torch.float32: 1e-5, torch.float64: 1e-9}
+# the moves tried, in multiples of the gap, nearest first: the first that
+# leaves every k at least the gap off lands (mu0 stays in (0, 1])
+POLE_STEPS = (0, -2, 2, -4, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _pole_factors(dtype, device) -> torch.Tensor:
+    """(len(POLE_STEPS), 1) factors ``1 + c gap`` of mu0, the first exactly 1."""
+    gap = POLE_GAP[dtype]
+    return torch.as_tensor([[1.0 + c * gap] for c in POLE_STEPS], dtype=dtype, device=device)
+
+
+def off_pole(mu0: torch.Tensor, k: torch.Tensor):
+    """``(mu0', moved)``: ``mu0`` (S,) with each solve moved off the beam's
+    resonance, and the (S,) mask of the solves moved.
+
+    ``k`` (M, S): every eigenvalue of each solve (its modes and layers).  A
+    solve whose least |1 - k mu0| is at least ``POLE_GAP`` keeps its mu0's
+    bits; another takes ``mu0 (1 + c gap)`` with the first ``c`` of
+    `POLE_STEPS` that puts every k at least the gap off (the farthest
+    reached where none does).  The choice is made on the device, with no
+    host sync, and counted as ``beam_pole_solves``; ``mu0'`` keeps ``mu0``'s
+    graph (d mu0' / d mu0 is the chosen factor)."""
+    gap, factors = POLE_GAP[mu0.dtype], _pole_factors(mu0.dtype, mu0.device)
+    with torch.no_grad():
+        m0 = mu0.detach()
+        e = k.detach() * m0 - 1.0
+        # 1 - k mu0 (1 + c gap) = -(1 + c gap) (e + c gap / (1 + c gap)): the least modulus over k
+        dist = torch.stack([torch.linalg.vector_norm(e + c * gap / (1.0 + c * gap), ord=-math.inf, dim=0)
+                            for c in POLE_STEPS]) * factors                      # (steps, S)
+        # no move up past mu0 = 1
+        dist = torch.where((factors <= 1.0) | (m0 * factors <= 1.0), dist, torch.zeros_like(dist))
+        lands = dist >= gap
+        pick = torch.where(lands.any(dim=0), lands.to(torch.int32).argmax(dim=0), dist.argmax(dim=0))
+        moved = pick != 0
+    count_on_device("beam_pole_solves", moved)
+    return mu0 * factors[pick, 0], moved
+
+
 class _SolveTables(NamedTuple):
     lamlam: torch.Tensor       # (NF, NLeg, N*N) lam(mu_i) lam(mu_j)
     lamlam_par: torch.Tensor   # the same times (-1)^(l - m)
@@ -265,6 +335,9 @@ def solve(problem: DisortProblem) -> DisortSolution:
 
     # ---- beam particular solution (reference _solve...py:209-231) ----
     if cfg.has_beam:
+        with span("disort.solve.pole", device):
+            # mu0 moved off the beam's resonance (`off_pole`): everything below reads the moved one
+            mu0 = off_pole(mu0.reshape(1), K_pos.reshape(1, -1).T)[0].reshape(mu0.shape)
         lam_m0 = normalized_assoc_legendre(NF, NLeg, -mu0.reshape(1))[:, :, 0]   # (NF, NLeg) at -mu0
         xfac = 2.0 * coeff * (stab.beam_delta * I0_div_4pi) * lam_m0[:, None, :]
         Xp = torch.bmm(xfac, lam_mu)                            # (NF, L, N)

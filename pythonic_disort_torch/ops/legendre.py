@@ -75,44 +75,52 @@ def normalized_assoc_legendre_host(nmodes: int, ndeg: int, x) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _recurrence_tables(nmodes: int, ndeg: int, dtype, device):
-    """Per-degree coefficients of the upward recurrence, (ndeg, nmodes, 1):
-    ``(2l-1) / d_l``, ``sqrt((l-1)^2 - m^2) / d_l`` with
-    ``d_l = sqrt(l^2 - m^2)``, and the masks ``m == l`` and ``m < l``;
-    plus the log seed coefficients (nmodes, 1) and the modes (nmodes, 1)."""
-    ms = np.arange(nmodes, dtype=np.float64)[None, :, None]
-    ell = np.arange(ndeg, dtype=np.float64)[:, None, None]
+def _recurrence_system(nmodes: int, ndeg: int, dtype, device):
+    """The upward recurrence as a unit lower-triangular system per mode,
+    ``(C0 + x C1) lam = e_m seed``, rows of degree l: ``lam_l - a_l x
+    lam_{l-1} + b_l lam_{l-2} = 0`` for l > m with ``a_l = (2l-1) / d_l``,
+    ``b_l = sqrt((l-1)^2 - m^2) / d_l``, ``d_l = sqrt(l^2 - m^2)``; ``lam_m``
+    the seed; ``lam_l = 0`` for l < m.  Returns ``C0``, ``C1`` (nmodes, 1,
+    ndeg, ndeg), the seed rows' mask (nmodes, 1, ndeg), the log seed
+    coefficients (nmodes, 1) and the modes (nmodes, 1)."""
+    ms = np.arange(nmodes, dtype=np.float64)[:, None]
+    ell = np.arange(ndeg, dtype=np.float64)[None, :]
     denom = np.sqrt(np.maximum(ell**2 - ms**2, 0.0))
     safe_denom = np.where(denom > 0.0, denom, 1.0)
-    a = (2.0 * ell - 1.0) / safe_denom
-    b = np.sqrt(np.maximum((ell - 1.0) ** 2 - ms**2, 0.0)) / safe_denom
+    above = ms < ell
+    a = np.where(above, (2.0 * ell - 1.0) / safe_denom, 0.0)                # (nmodes, ndeg)
+    b = np.where(above, np.sqrt(np.maximum((ell - 1.0) ** 2 - ms**2, 0.0)) / safe_denom, 0.0)
+    C0 = np.broadcast_to(np.eye(ndeg), (nmodes, ndeg, ndeg)).copy()
+    C1 = np.zeros((nmodes, ndeg, ndeg))
+    rows = np.arange(ndeg)
+    C1[:, rows[1:], rows[1:] - 1] = -a[:, 1:]
+    C0[:, rows[2:], rows[2:] - 2] = b[:, 2:]
     const = lambda x: torch.as_tensor(np.asarray(x, np.float64), dtype=dtype, device=device)
-    return (const(a), const(b), const(ms == ell), const(ms < ell),
-            const(_seed_log_coeffs(nmodes)[:, None]), const(ms[0]))
+    return (const(C0[:, None]), const(C1[:, None]), const(ms == ell)[:, None],
+            const(_seed_log_coeffs(nmodes)[:, None]), const(ms))
 
 
 def normalized_assoc_legendre(nmodes: int, ndeg: int, x: torch.Tensor) -> torch.Tensor:
     """Table ``lam`` of shape (nmodes, ndeg, npts) on the device of ``x``.
 
     The same recurrence and seeds as `normalized_assoc_legendre_host`;
-    ``x``: (npts,) points in [-1, 1].
+    ``x``: (npts,) points in [-1, 1].  The recurrence runs as one batched
+    unit lower-triangular solve of its banded system (`_recurrence_system`),
+    a few launches on the card where a loop over the degrees took seven a
+    degree; it differs from the loop by roundoff and carries gradients and
+    forward-mode tangents.
     """
-    a, b, is_seed, above, log_c, ms = _recurrence_tables(nmodes, ndeg, x.dtype, x.device)
+    C0, C1, is_seed, log_c, ms = _recurrence_system(nmodes, ndeg, x.dtype, x.device)
     one_minus_x2 = torch.clamp(1.0 - x[None, :] ** 2, min=0.0)
     positive = one_minus_x2 > 0.0
     safe = torch.where(positive, one_minus_x2, torch.ones_like(one_minus_x2))
     seeds = torch.exp(log_c + 0.5 * ms * torch.log(safe))
-    seeds = torch.where(positive | (ms == 0), seeds, torch.zeros_like(seeds))
+    seeds = torch.where(positive | (ms == 0), seeds, torch.zeros_like(seeds))       # (nmodes, npts)
 
-    prev = torch.zeros_like(seeds)
-    prev2 = torch.zeros_like(seeds)
-    out = []
-    for ell in range(ndeg):
-        rec = a[ell] * x[None, :] * prev - b[ell] * prev2
-        cur = is_seed[ell] * seeds + above[ell] * rec
-        out.append(cur)
-        prev2, prev = prev, cur
-    return torch.stack(out, dim=1)
+    system = torch.addcmul(C0, x[None, :, None, None], C1)                           # (nmodes, npts, ndeg, ndeg)
+    rhs = (is_seed * seeds[:, :, None])[..., None]                                    # (nmodes, npts, ndeg, 1)
+    lam = torch.linalg.solve_triangular(system, rhs, upper=False, unitriangular=True)
+    return lam[..., 0].transpose(1, 2)
 
 
 def legendre_series(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

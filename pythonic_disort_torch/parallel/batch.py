@@ -101,8 +101,11 @@ def make_batched_problem(
             if isinstance(x, torch.Tensor) and (x.device.type != "cpu" or device.type == "cpu"):
                 return x.to(dtype=dtype, device=device)      # no copy out of host memory
             with span("disort.entry.copy"):
-                return from_host(x.to(dtype=dtype, device=device) if isinstance(x, torch.Tensor)
-                                 else torch.tensor(np.asarray(x), dtype=dtype, device=device))
+                # copied in the host array's own dtype and converted on the device: a
+                # conversion on the host runs in the CPU's thread pool, whose time
+                # swings with the host's load
+                t = x.to(device=device) if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x), device=device)
+                return from_host(t).to(dtype)
 
         if isinstance(mu0, torch.Tensor) and (mu0.requires_grad or has_tangent(mu0)):
             lam_mu0 = None

@@ -9,16 +9,14 @@ without a beam; a spill fails the check).  Then it holds
 `operands.bvp_operands_plain` run on the card on the same operands:
 ``Gt`` must have equal bits, and ``B_l`` lie within `B_LIMIT` of the
 plain code's (the largest difference of a lane over its largest |B_l|:
-the plain code's gemvs sum in cuBLAS's order), over the lanes where the
-plain code's is finite; where it is not (a beam pole: ``1/mu0 + K``
-rounds to 0 in the operands' dtype, which neither route guards), the
-kernel's must not be finite either, and the least ``|1/mu0 + K|`` of
-those lanes is printed:
+the plain code's gemvs sum in cuBLAS's order); every lane of both routes
+must be finite (the solve moves mu0 off the beam's pole before it builds
+the operands, ``models/disort/solve.py::off_pole``):
 
 - on the operands of a step at the shapes of the benchmark's two
   radiance cells (`CELLS`), captured from ``batch_solve._solve`` in a
   ``make_batched_problem`` -> ``solve_intensity`` step built as the cells
-  build theirs, in float64 as the cells run and cast to float32, with and
+  build theirs, in float64 as the cells run and in float32, with and
   without the beam;
 - random operands at the kernel's edges (`EDGES`): n = 1, odd n, n past
   the BVP kernels' widths and at 64, whose shared memory needs the
@@ -27,13 +25,16 @@ those lanes is printed:
 It counts the launches of one step of each cell (one expected) and checks
 the routes: operands that take a gradient or carry a forward-mode tangent
 take the plain code (no launch, its bits), under ``no_grad`` the kernel.
-Last it times both routes at each cell's step in turns (plain, kernel,
+It times both routes at each cell's step in turns (plain, kernel,
 kernel, plain) with CUDA events, against the bound: the bytes the kernel
 must move (X, Y, P, Q, K, xp, xn read once, ``Gt`` and ``B_l`` written
-once) at 3.35 TB/s.  ``--source`` builds other versions of the source
-(an earlier commit's, an edited copy) with the package's flags, checks
-each the same way on the cells' operands and times it through
-`bvp_operands` inside ``_build.swapped``.  Exits nonzero if a check
+once) at 3.35 TB/s.  Last, `pole_step` holds the guarded float32 flux
+step at the shapes of the benchmark's ``sw_flux_f32`` cell, with rows set
+on, inside and just outside their beam pole, finite and within that
+cell's limit of the float64 step on the card.  ``--source`` builds other
+versions of the source (an earlier commit's, an edited copy) with the
+package's flags, checks each the same way on the cells' operands and
+times it through `bvp_operands` inside ``_build.swapped``.  Exits nonzero if a check
 fails.  ``chip_smoke.py`` at the repository root holds the kernel to the
 plain code at its own chunks' operands.
 """
@@ -70,6 +71,13 @@ STEP_KERNELS = ["eig_stage", "bvp_fused", "bvp_fused_wide", "legendre_series"]
 EDGES = [(1, 3, 5, 2), (3, 2, 7, 3), (8, 1, 33, 1), (17, 4, 1, 5), (24, 2, 37, 3), (34, 3, 11, 2),
          (64, 2, 9, 2)]
 B_LIMIT = {torch.float64: 1e-13, torch.float32: 1e-4}
+# `pole_step`: the benchmark's sw_flux_f32 chunk (columns, g-points,
+# layers, NQuad), its comparison (a row's largest difference over its
+# three fluxes at the layer bottoms, over its largest float64 value, times
+# min(1, d / POLE_SCALE), d its least |1 - k mu0|) and that cell's limit;
+# the rows set off their pole by these many gaps (0: on it), each sign
+POLE_CHUNK, POLE_SCALE, POLE_LIMIT = (8, 224, 60, 32), 1e-3, 1.5e-4
+POLE_OFFSETS = (0.0, 0.5, 1.5, 3.0, 10.0, 100.0)
 PEAK_BYTES_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 NAMES = ("X", "Y", "P", "Q", "K_full", "L", "S", "xp", "xn", "mu0")
 
@@ -79,8 +87,8 @@ def as_kwargs(args):
     return dict(dict.fromkeys(NAMES), **dict(zip(NAMES, args)))
 
 
-def cell_operands(cell, seed=SEED, device="cuda", cells=CELLS):
-    """The arguments of `bvp_operands` in one float64 step at ``cell``'s
+def cell_operands(cell, seed=SEED, device="cuda", cells=CELLS, dtype=torch.float64):
+    """The arguments of `bvp_operands` in one step in ``dtype`` at ``cell``'s
     shapes (a key of ``cells``), and the launches of ``bvp_operands`` in that step: a delta-M
     beam problem with NT corrections from `check_bvp.bench_arrays`' draws
     (Henyey-Greenstein moments), built by ``make_batched_problem`` and
@@ -93,8 +101,8 @@ def cell_operands(cell, seed=SEED, device="cuda", cells=CELLS):
     cfg = pt.DisortConfig(nquad=nquad, nleg=nquad, nleg_all=nleg_all, nfourier=nf, nlayers=L, nscoeffs=0,
                           nbdrf=0, has_beam=True, only_flux=False, has_deltam=True, nt_correct=True)
     prob = pt.make_batched_problem(cfg, a["tau"], a["omega"], a["leg"], a["mu0"], a["I0"],
-                                   f_arr=a["leg"][..., nquad], dtype=torch.float64, device=device)
-    phi = torch.tensor(PHI, dtype=torch.float64, device=device).expand(S, len(PHI)).contiguous()
+                                   f_arr=a["leg"][..., nquad], dtype=dtype, device=device)
+    phi = torch.tensor(PHI, dtype=dtype, device=device).expand(S, len(PHI)).contiguous()
     seen, real = [], batch_solve.bvp_operands
 
     def record(*args):
@@ -126,38 +134,19 @@ def random_operands(n, L, S, NF, dtype, seed):
                 xn=t(rng.normal(size=(n, lanes))), mu0=t(rng.uniform(0.2, 1.0, S)))
 
 
-def cast(ops, dtype):
-    return {k: v.to(dtype) if isinstance(v, torch.Tensor) else v for k, v in ops.items()}
-
-
 def without_beam(ops):
     return dict(ops, xp=None, xn=None, mu0=None)
 
 
 def lane_rel(B, ref):
     """The largest difference of a lane over its largest |ref| (0 where
-    the lane is 0 in both), over the lanes where ``ref`` is finite."""
-    finite = torch.isfinite(ref).all(dim=0)
-    B, ref = B[:, finite], ref[:, finite]
+    the lane is 0 in both); infinite where a lane of either is not finite."""
     scale = ref.abs().amax(dim=0)
     d = (B - ref).abs().amax(dim=0)
     rel = d / torch.where(scale > 0, scale, torch.ones_like(scale))
+    finite = torch.isfinite(B).all(dim=0) & torch.isfinite(ref).all(dim=0)
+    rel = torch.where(finite, rel, torch.full_like(rel, float("inf")))
     return float(rel.max()) if rel.numel() else 0.0
-
-
-def pole_lanes(B, ref, ops):
-    """Lanes where ``ref`` or ``B`` is not finite: (their count in ``ref``,
-    whether ``B`` is not finite in the same lanes, the least ``|1/mu0 +
-    K|`` over all of them in the operands' dtype, None if there are none)."""
-    in_ref, in_b = ~torch.isfinite(ref).all(dim=0), ~torch.isfinite(B).all(dim=0)
-    either = in_ref | in_b
-    dist = None
-    if either.any():
-        L, S = ops["L"], ops["S"]
-        NF = ops["X"].shape[2] // (L * S)
-        mu0_q = ops["mu0"][:, None].expand(S, L).T[None].expand(NF, L, S).reshape(-1)
-        dist = float((1.0 / mu0_q + ops["K_full"]).abs()[:, either].min())
-    return int(in_ref.sum()), torch.equal(in_ref, in_b), dist
 
 
 def check_bits(label, ops, version=None):
@@ -176,12 +165,11 @@ def check_bits(label, ops, version=None):
     line = f"{label}: Gt {'equal bits' if not bad else bad}; launches {launched}"
     if Bp is not None:
         rel = lane_rel(B, Bp)
-        poles, same, dist = pole_lanes(B, Bp, ops)
-        ok = ok and rel <= B_LIMIT[Bp.dtype] and same
+        ok = ok and rel <= B_LIMIT[Bp.dtype]
         line += f"; B_l {rel:.3e} of its lane's largest (limit {B_LIMIT[Bp.dtype]:.0e})"
-        if dist is not None:
-            line += (f"; {poles} lanes not finite in the plain code, {'the same' if same else 'others'} in the "
-                     f"kernel's, least |1/mu0 + K| there {dist:.3e}")
+        bad = [int((~torch.isfinite(x).all(dim=0)).sum()) for x in (B, Bp)]
+        if any(bad):
+            line += f"; lanes not finite: {bad[0]} in the kernel's, {bad[1]} in the plain code's"
     print(f"{line} {'ok' if ok else 'FAILED'}", flush=True)
     del Gt, B, Gp, Bp
     return ok, rel
@@ -248,6 +236,78 @@ def time_cell(label, ops, versions):
           f"{min(times['plain']) / best:.1f}x the plain code", flush=True)
 
 
+def pole_step(seed=SEED, device="cuda", chunk=POLE_CHUNK):
+    """The guarded float32 flux step at ``sw_flux_f32``'s shapes (``chunk``)
+    against the float64 step on ``device``, with rows set on their beam
+    pole (mu0 = 1/k to float32's rounding, k one of the row's float32
+    eigenvalues in (1, 5)) and at `POLE_OFFSETS` gaps off it, the others as
+    drawn; prints, for each set of rows, the solves moved, the float64
+    pole distance and the errors, and counts the moved solves that no move
+    put a gap off every k.  Ok if every output is finite and every row is
+    within `POLE_LIMIT` after the cell's scaling."""
+    import pythonic_disort_torch as pt
+    from ..models.disort import solve as single
+
+    cols, bands, L, nquad = chunk
+    a = bench_arrays(cols, seed=seed, nlayers=L, nquad=nquad, nbands=bands)
+    S, gap = cols * bands, single.POLE_GAP[torch.float32]
+    seen, real = [], batch_solve.off_pole
+
+    def record(mu0, k):
+        out = real(mu0, k)
+        seen.append((k.detach().double().cpu(), out[0].detach().double().cpu(), out[1].cpu()))
+        return out
+
+    def fluxes(mu0, dtype):
+        prob = pt.make_batched_problem(
+            pt.DisortConfig(nquad=nquad, nleg=nquad, nleg_all=nquad + 1, nfourier=1, nlayers=L, nscoeffs=0,
+                            nbdrf=0, has_beam=True, only_flux=True, has_deltam=True),
+            a["tau"], a["omega"], a["leg"], mu0, a["I0"], f_arr=a["f_arr"], dtype=dtype, device=device)
+        out = pt.solve_fluxes(prob, prob.tau_arr)
+        return torch.stack([x.double().cpu() for x in out], dim=1)          # (S, 3, L)
+
+    batch_solve.off_pole = record
+    try:
+        fluxes(a["mu0"], torch.float32)
+        k32 = seen.pop()[0]                                                  # (M, S)
+        rng = np.random.default_rng(seed)
+        mu0 = np.float32(a["mu0"]).astype(np.float64)
+        group = np.arange(S) % (len(POLE_OFFSETS) + 1)                       # the last: rows as drawn
+        for s in range(S):
+            if group[s] < len(POLE_OFFSETS):
+                ks = k32[:, s][(k32[:, s] > 1.0) & (k32[:, s] < 5.0)].numpy()
+                off = POLE_OFFSETS[group[s]] * gap * (1 if s % 2 else -1)
+                mu0[s] = np.float32((1.0 + off) / np.float32(ks[rng.integers(len(ks))]))
+        got = fluxes(mu0, torch.float32)
+        k, moved_mu0, moved = seen.pop()
+        want = fluxes(mu0, torch.float64)
+        k64 = seen.pop()[0]
+    finally:
+        batch_solve.off_pole = real
+    finite = bool(torch.isfinite(got).all())
+    d64 = (1.0 - k64 * torch.as_tensor(mu0)).abs().amin(dim=0).numpy()
+    landed = ((1.0 - k * moved_mu0).abs().amin(dim=0) >= gap * (1 - 1e-3)).numpy()
+    err = ((got - want).abs().amax(dim=(1, 2)) / want.abs().amax(dim=(1, 2))).numpy()
+    scaled = err * np.minimum(1.0, d64 / POLE_SCALE)
+    moved = moved.numpy()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip() if device == "cuda" else "-"
+    print(f"pole step (sw_flux_f32's chunk: {S} solves, L = {L}, NQuad = {nquad}, float32 against float64, "
+          f"{device}, {smi}); gap {gap:g}; every output finite: {finite}", flush=True)
+    for g in range(len(POLE_OFFSETS) + 1):
+        sel = group == g
+        what = f"{POLE_OFFSETS[g]:g} gaps off a pole" if g < len(POLE_OFFSETS) else "as drawn"
+        print(f"  {what}: {int(sel.sum())} rows, {int(moved[sel].sum())} moved, d64 {d64[sel].min():.2e}-"
+              f"{d64[sel].max():.2e}; error max {err[sel].max():.3e} (median {np.median(err[sel]):.2e}), "
+              f"scaled max {scaled[sel].max():.3e}", flush=True)
+    stuck = int((moved & ~landed).sum())
+    ok = finite and float(scaled.max()) <= POLE_LIMIT
+    print(f"  {int(moved.sum())} of {S} solves moved, {stuck} of them with no move landing a gap off every k; "
+          f"largest scaled error {scaled.max():.3e} at d64 {d64[scaled.argmax()]:.2e} (limit {POLE_LIMIT:g}), "
+          f"largest error {err.max():.3e} at d64 {d64[err.argmax()]:.2e} {'ok' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--source", nargs="*", default=[], help="other versions of csrc/bvp_operands.cu")
@@ -286,13 +346,16 @@ def main(argv=None):
             failed += not check_bits(f"{cell} float64 {v.label}", ops, v)[0]
         failed += not check_bits(f"{cell} float64 no beam", without_beam(ops))[0]
         time_cell(f"{cell} float64", ops, versions)
-        ops32 = cast(ops, torch.float32)
         del ops
+        torch.cuda.empty_cache()
+        ops32, launched = cell_operands(cell, dtype=torch.float32)
+        failed += launched != 1
         failed += not check_bits(f"{cell} float32", ops32)[0]
         failed += not check_bits(f"{cell} float32 no beam", without_beam(ops32))[0]
         time_cell(f"{cell} float32", ops32, [])
         del ops32
         torch.cuda.empty_cache()
+    failed += not pole_step()
     print(f"{failed} checks failed")
     return 1 if failed else 0
 

@@ -23,7 +23,11 @@ The spans (``device`` marks those timed on the device as well):
   and each copy of a host array to the problem's device;
 - ``disort.solve.assemble``, ``.eig``, ``.operands``, ``.bvp``,
   ``.outputs`` (device): the stages of the batched solve
-  (``models/disort/batch_solve.py``);
+  (``models/disort/batch_solve.py``); ``disort.solve.pole`` (device),
+  between ``.eig`` and ``.operands``: the guard that moves a solve's mu0
+  off the beam's resonance, with the beam's Legendre table rebuilt at the
+  moved mu0 (``models/disort/solve.py::off_pole``; the single-column
+  solve runs it too);
 - ``disort.eval.fluxes``, ``disort.eval.modes``, ``disort.eval.nt``
   (device): the batched evaluators (``parallel/batch.py``);
   ``disort.eval.nt.series`` and ``disort.eval.nt.layers`` (device), inside
@@ -60,7 +64,9 @@ route's rule lookups served by its cache and those that built the rule;
 (``ops/legendre.py::legendre_series_bcast``, one a moment of each series,
 counted alike whether the kernel or the plain loop runs them);
 ``eig_stage_rows24``, the eigen-stage kernel's launches in its variant with
-24-entry rows (``ops/cuda_eig.py``, 16 < n <= 24).
+24-entry rows (``ops/cuda_eig.py``, 16 < n <= 24); ``beam_pole_solves``,
+the solves whose mu0 the pole guard moved, summed on the device
+(`count_on_device`) and read by `recorded`, so that counting adds no sync.
 """
 
 from __future__ import annotations
@@ -93,6 +99,7 @@ class _Record:
         self.device_ms = {}     # name -> device ms of the resolved event pairs
         self.pending = {}       # name -> [(start event, end event)]
         self.counters = {}
+        self.device_counters = {}   # name -> {device: running total, a 0-d tensor there}
         self.builds = {}
         self.launch_counts = {}
 
@@ -151,6 +158,19 @@ def count(name: str, n: int = 1) -> None:
             r.counters[name] = r.counters.get(name, 0) + n
 
 
+def count_on_device(name: str, flags: torch.Tensor) -> None:
+    """Add the number of true entries of ``flags`` to the counter ``name``
+    while a profiler runs, as a running total on their device: nothing is
+    read on the host until `recorded`."""
+    if _enabled():
+        n = flags.detach().sum()
+        r = _RECORD
+        with r.lock:
+            totals = r.device_counters.setdefault(name, {})
+            total = totals.get(n.device)
+            totals[n.device] = n if total is None else total + n
+
+
 def from_host(t: torch.Tensor) -> torch.Tensor:
     """Count ``t``, just copied from host memory, if it lies on a CUDA
     device: its bytes (``h2d_bytes``) and the host sync of the pageable
@@ -186,8 +206,9 @@ def recorded() -> dict:
     ``device_ms`` sums the device extents of a span's completed event
     pairs (None for a span never timed on a device); call it after the
     device has finished the work (``torch.cuda.synchronize()``): a pair
-    still pending is left for a later call.  ``launches`` holds the
-    kernels launched, each with its count.
+    still pending is left for a later call.  A counter kept on a device
+    (`count_on_device`) is read here, which waits for its device.
+    ``launches`` holds the kernels launched, each with its count.
     """
     r = _RECORD
     with r.lock:
@@ -202,7 +223,10 @@ def recorded() -> dict:
             pairs[:] = left
         spans = {name: {"calls": calls, "host_ms": 1e3 * host, "device_ms": r.device_ms.get(name)}
                  for name, (calls, host) in r.spans.items()}
-        return {"spans": spans, "counters": dict(r.counters),
+        counters = dict(r.counters)
+        for name, totals in r.device_counters.items():
+            counters[name] = counters.get(name, 0) + sum(int(t) for t in totals.values())
+        return {"spans": spans, "counters": counters,
                 "builds": {k: dict(v) for k, v in r.builds.items()}, "launches": dict(r.launch_counts)}
 
 

@@ -337,13 +337,18 @@ def test_cell_capture_through_the_port():
     assert Gt.shape == (4, 8, 8, 9) and B_l.shape == (8, 36)
     assert check_operands.as_kwargs((1, 2, 3, 4, 5, 6, 7)) == dict(
         X=1, Y=2, P=3, Q=4, K_full=5, L=6, S=7, xp=None, xn=None, mu0=None)
+    ops32, _ = check_operands.cell_operands("tiny", device="cpu", cells={"tiny": (3, 4, 8, 3, 9)},
+                                            dtype=torch.float32)
+    assert all(v.dtype == torch.float32 for v in ops32.values() if isinstance(v, torch.Tensor))
+    assert ops32["X"].shape == ops["X"].shape and batch_solve.bvp_operands is operands.bvp_operands
 
 
 def test_card_check_sets_pole_lanes_apart():
-    """The card check's comparison of ``B_l`` (``tools/check_operands.py``):
-    a lane at the beam pole (``1/mu0 + K`` exactly 0, which neither route
-    guards) is not finite in the plain code; it is left out of the
-    relative difference, and the kernel's has to be not finite there too."""
+    """The card check's comparison of ``B_l`` (``tools/check_operands.py``)
+    sets no lane apart: the solve moves mu0 off the beam's pole before it
+    builds the operands, so a lane at the pole (``1/mu0 + K`` exactly 0,
+    not finite in the plain code) reads infinite and fails the check, on
+    either route."""
     from pythonic_disort_torch.tools import check_operands
 
     ops = random_operands()
@@ -357,11 +362,10 @@ def test_card_check_sets_pole_lanes_apart():
     _, B = operands.bvp_operands_plain(**ops)
     bad = ~torch.isfinite(B).all(dim=0)
     assert bad.sum() == 1 and bad[ops["S"] + 1]
-    assert check_operands.lane_rel(B, B) == 0.0
-    assert check_operands.pole_lanes(B, B, ops) == (1, True, 0.0)
     finite = torch.where(torch.isfinite(B), B, torch.zeros_like(B))
-    assert check_operands.pole_lanes(finite, B, ops) == (1, False, 0.0)
-    assert check_operands.pole_lanes(finite, finite, ops) == (0, True, None)
+    assert check_operands.lane_rel(B, B) == float("inf")
+    assert check_operands.lane_rel(finite, B) == float("inf") == check_operands.lane_rel(B, finite)
+    assert check_operands.lane_rel(finite, finite) == 0.0
     off = finite.clone()
     off[0, 0] += 1e-3 * off[:, 0].abs().max()
-    assert check_operands.lane_rel(off, B) == pytest.approx(1e-3)
+    assert check_operands.lane_rel(off, finite) == pytest.approx(1e-3)

@@ -21,7 +21,7 @@ from pythonic_disort_torch.utils import profiling
 
 R, L, NQ, NF = 4, 5, 8, 4
 SOLVE = {"disort.entry", "disort.entry.copy", "disort.entry.legendre", "disort.solve.assemble", "disort.solve.eig",
-         "disort.solve.operands", "disort.solve.bvp", "disort.solve.outputs"}
+         "disort.solve.pole", "disort.solve.operands", "disort.solve.bvp", "disort.solve.outputs"}
 NT = {"disort.eval.nt", "disort.eval.nt.series", "disort.eval.nt.layers"}
 GRAD = {"disort.grad.bvp", "disort.grad.eig"}
 
@@ -167,6 +167,21 @@ def test_entry_copies_nest_inside_the_entry_and_no_span_is_on_a_device():
     assert profiling.recorded()["spans"]["disort.entry.copy"]["calls"] == 8
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_entry_copies_host_arrays_in_their_dtype_and_converts_them(dtype):
+    """The entry copies a host array in its own dtype and converts it
+    where the problem lives: the problem's tensors hold the bits of a
+    conversion on the host, whatever the host array's dtype (float64,
+    float32, a Python list)."""
+    a = _arrays()
+    leg32 = a["leg"].astype(np.float32)
+    p = pt.make_batched_problem(_config(), a["tau"], a["om"], leg32, list(a["mu0"]), a["I0"], phi0=a["phi0"],
+                                f_arr=a["f"], dtype=dtype, device="cpu")
+    for got, host in ((p.tau_arr, a["tau"]), (p.omega_arr, a["om"]), (p.leg_coeffs_all, leg32),
+                      (p.mu0, np.asarray(a["mu0"])), (p.I0, a["I0"]), (p.phi0, a["phi0"]), (p.f_arr, a["f"])):
+        assert got.dtype == dtype and torch.equal(got, torch.tensor(host, dtype=dtype))
+
+
 @pytest.mark.parametrize("call", sorted(CALLS))
 def test_outputs_bitwise_equal_under_the_profiler(call):
     fn = CALLS[call][0]
@@ -184,7 +199,8 @@ def test_reset_empties_the_record():
     profiling.launched("eig_stage")
     profiling.launched("eig_stage")
     rec = profiling.recorded()
-    assert rec["spans"] and rec["counters"] == {"host_syncs": 3} and rec["builds"]
+    # the flux call's pole guard ran and moved no solve
+    assert rec["spans"] and rec["counters"] == {"host_syncs": 3, "beam_pole_solves": 0} and rec["builds"]
     assert rec["launches"] == {"eig_stage": 2}
     profiling.reset()
     rec = profiling.recorded()
