@@ -39,7 +39,7 @@ solves, and drives both paths of the port:
   port's float64 CPU result on a subset of rows, timed and traced; the NT
   correction's three Legendre series take one launch each of the
   Legendre-series kernel (``csrc/legendre_series.cu``).  Phase 3 holds
-  kernels 1 and 2 at the intensity chunk's shapes (262 144 eigen lanes,
+  kernel 1 and the fused solve at the intensity chunk's shapes (262 144 eigen lanes,
   B = 4096 boundary-value lanes) and the Legendre-series kernel, bit for
   bit, against the plain loop at a ``cloud_radiance`` chunk's series and
   the intensity chunk's; phase 5 counts its launches in the NT goldens;
@@ -413,8 +413,8 @@ def recording(module, name):
 def capture_kernel_inputs(problem, tau, phi=None):
     """Run the batched path once, keeping copies of its kernels' operands:
     ``eig`` (even N <= 32) or ``jacobi_wide`` (the congruence M, other N),
-    ``bvp`` (the operands of ``solve_bvp_fused``, any 2N; kernel 2 or 7 up
-    to 2N = 64), ``blocktri`` (the blocks it assembles above 2N = 64;
+    ``bvp`` (the operands of ``solve_bvp_fused``, any 2N; kernel 7 up to
+    2N = 64), ``blocktri`` (the blocks it assembles above 2N = 64;
     kernel 6) and ``operands`` (the keyword arguments of ``bvp_operands``).
     With azimuths ``phi`` the path is ``solve_intensity`` with one probe per
     layer at ``tau``, else ``solve_fluxes``."""
@@ -882,7 +882,7 @@ def phase_kernels(main_ops):
     bvp_plain_ms = cuda_ms(lambda: solve_bvp_fused_plain(*ops), 2)
     bvp_bytes = sum(o.numel() for o in ops) * esz + ops[3].numel() * esz
     bvp_bound, bvp_by = bound_ms(bvp_bytes, bvp_flops(L, n2 // 2) * Bb, "float32")
-    # the route kernel 2 replaces: the blocks assembled by tensor code, then kernel 3
+    # the route the fused solve replaces: the blocks assembled by tensor code, then kernel 3
     route_ms = cuda_ms(lambda: solve_block_tridiag_lanes_cuda(*assemble_bvp_blocks(*ops[:3]), ops[3]), 20)
     jac_bound, jac_by = bound_ms((2 * n * n + n) * B * esz, jacobi_flops(n, jac_sweeps) * B, "float32")
     log(f"  eig_stage: {eig_ms:.4f} ms (plain {eig_plain_ms:.3f} ms, torch.linalg.eigh on M "
@@ -913,9 +913,9 @@ def phase_kernels(main_ops):
         log(f"  jacobi_eigh n={n_} B={B_} {name} ({what}): {ms:.4f} ms (plain "
             f"{'not timed' if plain is None else f'{plain:.3f} ms'}, kernel 5 {k5:.4f} ms, torch.linalg.eigh "
             f"{lib:.3f} ms, bound {bound:.4f} ms by {by}: {jacobi_flops(n_, sw) * B_:.3e} FLOP)")
-    log(f"  bvp_fused: {bvp_ms:.4f} ms (plain {bvp_plain_ms:.3f} ms, bound {bvp_bound:.4f} ms by {bvp_by}; "
+    log(f"  bvp_fused_wide at NC = 32: {bvp_ms:.4f} ms (plain {bvp_plain_ms:.3f} ms, bound {bvp_bound:.4f} ms by {bvp_by}; "
         f"assemble_bvp_blocks + blocktri on the same operands {route_ms:.4f} ms; "
-        f"ptxas spills {spill_bytes('bvp_fused')} B)")
+        f"ptxas spills {spill_bytes('bvp_fused_wide')} B)")
 
     def time_blocktri(o, what, reps, plain_reps):
         """ms, plain ms, bound ms and what bounds it, at the shape of ``o``."""
@@ -951,9 +951,9 @@ def phase_kernels(main_ops):
              bound_ms=eig_bound, bound_by=eig_by, library_ms=eigh_ms,
              library_call=f"torch.linalg.eigh on the (B, 16, 16) M matrices in chunks of {EIGH_CHUNK} (eigh alone, not the stage)",
              other_shapes=eig_others),
-        dict(name="bvp_fused", route="cuda", source="pythonic_disort_torch/csrc/bvp_fused.cu",
+        dict(name="bvp_fused", route="cuda", source="pythonic_disort_torch/csrc/bvp_fused_wide.cu",
              replaces="pythonic_disort_tpu/ops/pallas_blocktri.py:382",
-             replaces_function="solve_bvp_fused_pallas",
+             replaces_function="solve_bvp_fused_pallas, at 2N <= 32 (kernel 7's capacities 16, 32)",
              launches=None, max_abs_err=bvp_abs, max_err=bvp_rel, ms=bvp_ms, plain_ms=bvp_plain_ms,
              bound_ms=bvp_bound, bound_by=bvp_by, library_ms=None, library_call=None,
              assembled_route_ms=route_ms, gradient_route_max_err=bvp_grad_err),
@@ -976,14 +976,15 @@ def phase_kernels(main_ops):
 
 
 def phase_intensity_kernels(kernels):
-    """Kernels 1 and 2 at the shapes of phase 8's intensity chunk (256
-    solves x 16 Fourier modes x 64 layers: kernel 1 at B = 262 144 lanes,
-    kernel 2 at B = 4096), against their plain versions and timed."""
+    """Kernel 1 and the fused solve at the shapes of phase 8's intensity
+    chunk (256 solves x 16 Fourier modes x 64 layers: kernel 1 at B =
+    262 144 lanes, the fused solve at 2N = 32, B = 4096), against their
+    plain versions and timed."""
     import torch
     from pythonic_disort_torch.ops.cuda_blocktri import solve_bvp_fused, solve_bvp_fused_plain
     from pythonic_disort_torch.ops.cuda_eig import eig_stage_lanes, eig_stage_lanes_plain, jacobi_sweeps
 
-    log("phase 3: kernels 1 and 2 at the intensity chunk's shapes")
+    log("phase 3: kernel 1 and the fused solve at the intensity chunk's shapes")
     problem, tau, phi = intensity_problem(bench_arrays(INT_COLS, seed=7), torch.float32, "cuda")
     ops = capture_kernel_inputs(problem, tau, phi)
     del problem
@@ -1013,7 +1014,7 @@ def phase_intensity_kernels(kernels):
                                  bvp_flops(L, n2 // 2) * Bb, "float32")
     log(f"  eig_stage n={n} B={B}: {eig_ms:.4f} ms (plain {eig_plain:.3f} ms, torch.linalg.eigh on M "
         f"{eigh_ms:.3f} ms, bound {eig_bound:.4f} ms by {eig_by})")
-    log(f"  bvp_fused L={L} 2N={n2} B={Bb}: {bvp_ms:.4f} ms (plain {bvp_plain:.3f} ms, bound {bvp_bound:.4f} ms "
+    log(f"  bvp_fused_wide L={L} 2N={n2} B={Bb}: {bvp_ms:.4f} ms (plain {bvp_plain:.3f} ms, bound {bvp_bound:.4f} ms "
         f"by {bvp_by})")
     kernels[0]["other_shapes"].append(dict(
         shape=f"n={n} B={B}", operands="intensity chunk (phase 8)", ms=eig_ms, plain_ms=eig_plain,
@@ -1021,6 +1022,84 @@ def phase_intensity_kernels(kernels):
     kernels[1]["other_shapes"] = [dict(
         shape=f"L={L} 2N={n2} B={Bb}", operands="intensity chunk (phase 8)", ms=bvp_ms, plain_ms=bvp_plain,
         bound_ms=bvp_bound, bound_by=bvp_by, max_abs_err=bvp_abs, max_err=bvp_rel)]
+
+
+# the fused solve at 2N <= 32 in phase 3: the NQuad of the captured calls,
+# and the cells that run it at 2N = 32 (name, lanes, dtype; L = 60 in each)
+BVP_NARROW_NQUAD = (2, 6, 16, 30)
+BVP_CELLS = (("sw_radiance", 7168, "float64"), ("sw_flux", 1792, "float64"), ("sw_flux_f32", 1792, "float32"),
+             ("lw_flux_temper", 2048, "float32"))
+
+
+def phase_bvp_narrow(main_ops, kernels):
+    """Phase 3 for the fused solve at 2N <= 32 (kernel 7's capacities NC =
+    16 and 32, which took over from kernel 2): against its float64 plain
+    version on the main-path operands in float64 and at NQuad = 2, 6, 16 and
+    30 calls in float32 and float64, and on ragged batches with one lane of
+    NaN operands (the other lanes held, that lane non-finite); ptxas's
+    registers and spills per capacity; then timed at the shapes of the four
+    cells that run 2N = 32 (the main-path operands' first 60 layers, the
+    lanes repeated) beside the route it replaced (`assemble_bvp_blocks` +
+    kernel 3), the plain version and the bound.  Fills kernel 2's row of
+    ``kernels`` (its ``cells`` and ``ptxas``)."""
+    import torch
+    from pythonic_disort_torch.ops import _build
+    from pythonic_disort_torch.ops.blocktri import assemble_bvp_blocks
+    from pythonic_disort_torch.ops.cuda_blocktri import (
+        solve_block_tridiag_lanes_cuda, solve_bvp_fused, solve_bvp_fused_plain)
+    from pythonic_disort_torch.tools.check_bvp import lanes, nan_lane_check
+
+    log("phase 3: the fused solve at 2N <= 32 (kernel 7 at NC = 16, 32) against its plain version")
+    f32, f64 = torch.float32, torch.float64
+    shape = lambda o: f"L={o[0].shape[0]} 2N={o[0].shape[1]} B={o[0].shape[3]}"
+    name = lambda dt: str(dt).removeprefix("torch.")
+    captured = lambda seed, nlayers, nquad, dt: capture_kernel_inputs(*make_problem(
+        bench_arrays(1, seed=seed, nlayers=nlayers, nquad=nquad), dt, "cuda", nquad=nquad))["bvp"]
+    ops = main_ops["bvp"]
+    bvp_checks(tuple(o.double() for o in ops), f"bvp {shape(ops)} f64 (main-path operands)")
+    for nquad in BVP_NARROW_NQUAD:
+        for dt in (f32, f64):
+            o = captured(50 + nquad, 16, nquad, dt)
+            bvp_checks(o, f"bvp {shape(o)} {name(dt)} (NQuad={nquad} call)")
+    for nquad, dt, B in ((2, f64, 1001), (16, f32, 777), (32, f32, 777), (32, f64, 1001)):
+        o = lanes(captured(60 + nquad, 16, nquad, dt), B)
+        rel, nan_out = nan_lane_check(o, 5)
+        tol = 1e-3 if dt == f32 else 1e-9
+        log(f"  bvp {shape(o)} {name(dt)}, lane 5's operands NaN: the other lanes' per-lane rel {rel:.3e}; "
+            f"lane 5 {'non-finite' if nan_out else 'finite'}")
+        check(rel < tol and nan_out, f"bvp {shape(o)} {name(dt)}: a NaN lane stays in its lane, the others within "
+                                     f"{tol:g}")
+    ptxas = {args: dict(registers=regs, stack=stack, spill_stores=st, spill_loads=ld)
+             for args, regs, stack, st, ld, _ in _build.current("bvp_fused_wide").ptxas()
+             if "Li16E" in args or "Li32E" in args}
+    for args, r in ptxas.items():
+        log(f"  bvp_fused_wide variant <{args}>: {r['registers']} registers, "
+            f"{r['spill_stores'] + r['spill_loads']} B spilled")
+    check(len(ptxas) == 4 and all(r["spill_stores"] + r["spill_loads"] == 0 for r in ptxas.values()),
+          "the four narrow variants of kernel 7 do not spill")
+
+    log("timing the fused solve at the shapes of the cells that run 2N = 32 (CUDA events)")
+    ops60 = tuple(o if k == 2 else o[:60] for k, o in enumerate(ops))
+    cells = []
+    for cell, B, dt in BVP_CELLS:
+        o = lanes(tuple(x.to(getattr(torch, dt)) for x in ops60), B)
+        L, n2, _, _ = o[0].shape
+        x = solve_bvp_fused(*o)
+        _, rel = lane_rel_err(x, solve_bvp_fused_plain(*(t.double() for t in o)))
+        tol = 1e-3 if dt == "float32" else 1e-9
+        check(bool(torch.isfinite(x).all()) and rel < tol, f"bvp {shape(o)} {dt} ({cell}): within {tol:g} per lane")
+        ms = cuda_ms(lambda: solve_bvp_fused(*o), 5)
+        route = cuda_ms(lambda: solve_block_tridiag_lanes_cuda(*assemble_bvp_blocks(*o[:3]), o[3]), 2)
+        plain = cuda_ms(lambda: solve_bvp_fused_plain(*o), 1)
+        esz = o[0].element_size()
+        nbytes = (sum(t.numel() for t in o) + o[3].numel()) * esz
+        bound, by = bound_ms(nbytes, bvp_flops(L, n2 // 2) * B, dt)
+        log(f"  bvp {shape(o)} {dt} ({cell}): {ms:.4f} ms (per-lane rel {rel:.3e}; assemble_bvp_blocks + blocktri "
+            f"{route:.4f} ms; plain {plain:.3f} ms; bound {bound:.4f} ms by {by}: {nbytes / 1e9:.3f} GB in and out, "
+            f"{bvp_flops(L, n2 // 2) * B:.3e} FLOP)")
+        cells.append(dict(cell=cell, shape=f"{shape(o)} {dt}", ms=ms, assembled_route_ms=route, plain_ms=plain,
+                          bound_ms=bound, bound_by=by, max_err=rel))
+    kernels[1].update(cells=cells, ptxas=ptxas)
 
 
 # kernel 5's widths (n = N = NQuad/2) and kernel 6's (L, n, B, dtype) in
@@ -1359,15 +1438,14 @@ def phase_main_path(arrs, problem, tau, kernels):
     torch.cuda.synchronize()
     launches = Counter(profiling.recorded()["launches"])
     log(f"  launches in one chunk: {launches}")
-    for k in kernels[:2]:
-        k["launches"], k["launches_on"] = launches[k["name"]], "batched flux path, one chunk"
-    check(launches["eig_stage"] > 0 and launches["bvp_fused"] > 0,
-          "the eigen and fused BVP kernels launched on the main path")
+    for k, source in zip(kernels[:2], ("eig_stage", "bvp_fused_wide")):
+        k["launches"], k["launches_on"] = launches[source], "batched flux path, one chunk"
+    check(launches["eig_stage"] > 0 and launches["bvp_fused_wide"] == 1,
+          "the eigen kernel and the fused BVP kernel (kernel 7 at NC = 32) launched on the main path")
     check(launches["bvp_operands"] == 1, "the BVP operands kernel once a chunk")
     check(launches["blocktri"] == 0 and launches["jacobi_eigh"] == 0
-          and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0
-          and launches["bvp_fused_wide"] == 0,
-          "the forward-only NQuad=32 chunk takes neither the generic block-Thomas, a Jacobi kernel nor kernel 7")
+          and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0,
+          "the forward-only NQuad=32 chunk takes neither the generic block-Thomas nor a Jacobi kernel")
     check(all(torch.isfinite(x).all().item() for x in out), "fluxes finite")
     check(all(x.shape == (CHUNK_COLS * NBANDS, NLAYERS) for x in out), "fluxes have shape (1024, 64)")
 
@@ -1381,7 +1459,7 @@ def phase_main_path(arrs, problem, tau, kernels):
 
     chunk_ms = best_ms(lambda: solve_fluxes(problem, tau), N_CHUNKS)
     eig_ms = kernels[0]["ms"] * launches["eig_stage"]
-    bvp_ms = kernels[1]["ms"] * launches["bvp_fused"]
+    bvp_ms = kernels[1]["ms"] * launches["bvp_fused_wide"]
     cols_s = CHUNK_COLS / chunk_ms * 1e3
     log(f"  steady state: {cols_s:.3f} columns/s ({N_CHUNKS} chunks best of {REPS}: "
         f"{N_CHUNKS * chunk_ms:.2f} ms); per chunk {chunk_ms:.3f} ms = eig kernel {eig_ms:.3f} + "
@@ -1516,7 +1594,7 @@ def phase_single_column(kernels):
     kernels[0]["launches_single_column"] = launches["eig_stage"]
     check(launches["eig_stage"] > 0 and launches["blocktri"] > 0,
           "the eigen and block-Thomas kernels launched on the single-column path")
-    check(launches["bvp_fused"] == 0 and launches["bvp_fused_wide"] == 0 and launches["jacobi_eigh"] == 0,
+    check(launches["bvp_fused_wide"] == 0 and launches["jacobi_eigh"] == 0,
           "the forward-only single-column path takes neither fused BVP kernel nor the Jacobi kernel")
     _, fu64, fd64, u064, u64 = pydisort(**kwargs, dtype=torch.float64, device="cpu")
     within(fu64(tau), fu(tau), "flux_up")
@@ -1542,7 +1620,7 @@ def phase_single_column(kernels):
     log(f"  launches: {launches}")
     k7 = by_name["bvp_fused_wide"]
     k7["launches"], k7["launches_on"] = launches["bvp_fused_wide"], "batched flux path at NQuad=48, one chunk"
-    check(launches["bvp_fused_wide"] > 0 and launches["blocktri"] == 0 and launches["bvp_fused"] == 0,
+    check(launches["bvp_fused_wide"] > 0 and launches["blocktri"] == 0,
           "the NQuad=48 batched solve takes kernel 7, not the generic block-Thomas kernel")
     check(all(torch.isfinite(x).all().item() for x in out), "NQuad=48 fluxes finite")
     nref = REF_COLS * NBANDS
@@ -1643,16 +1721,15 @@ def phase_gradient(arrs, kernels, chunk_ms):
     torch.cuda.synchronize()
     launches = Counter(profiling.recorded()["launches"])
     log(f"  launches in one gradient step: {launches}")
-    check(launches["jacobi_eigh"] >= 1 and launches["bvp_fused"] == 1 and launches["blocktri"] >= 1
-          and launches["eig_stage"] == 0 and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0
-          and launches["bvp_fused_wide"] == 0,
+    check(launches["jacobi_eigh"] >= 1 and launches["bvp_fused_wide"] == 1 and launches["blocktri"] >= 1
+          and launches["eig_stage"] == 0 and launches["jacobi_eigh_wide"] == 0 and launches["blocktri_wide"] == 0,
           "one gradient step takes the Jacobi kernel, the fused BVP kernel once, the block-Thomas kernel "
           "for the transposed solve, and not the forward-only eigen kernel")
     by_name = {k["name"]: k for k in kernels}
     by_name["jacobi_eigh"]["launches"] = launches["jacobi_eigh"]
     by_name["jacobi_eigh"]["launches_on"] = "batched gradient path, one step (forward and backward)"
-    for name in ("bvp_fused", "blocktri"):
-        by_name[name]["launches_gradient_step"] = launches[name]
+    for name, source in (("bvp_fused", "bvp_fused_wide"), ("blocktri", "blocktri")):
+        by_name[name]["launches_gradient_step"] = launches[source]
     check(g.shape == (CHUNK_COLS * NBANDS, NLAYERS), "d loss / d omega has shape (1024, 64)")
 
     nref = REF_COLS * NBANDS
@@ -1739,12 +1816,12 @@ def gradient_mu0(arrs, by_name, omega_step, dist):
 
     log(f"  (m) d loss / d mu0 of the same chunk, mu0 the leaf, f32, cuda")
     step = gradient_step(arrs, torch.float32, "cuda", wrt="mu0")
-    g, launches = launched(step, "(m) one d loss / d mu0 step", ("eig_stage", "bvp_fused", "blocktri"),
-                           ("jacobi_eigh", "jacobi_eigh_wide", "blocktri_wide", "bvp_fused_wide", "bvp_operands"))
-    check(launches["eig_stage"] == 1 and launches["bvp_fused"] == 1,
+    g, launches = launched(step, "(m) one d loss / d mu0 step", ("eig_stage", "bvp_fused_wide", "blocktri"),
+                           ("jacobi_eigh", "jacobi_eigh_wide", "blocktri_wide", "bvp_operands"))
+    check(launches["eig_stage"] == 1 and launches["bvp_fused_wide"] == 1,
           "(m) the eigen kernel and the fused BVP kernel once each: the eigen operands take no gradient")
-    for name in ("eig_stage", "bvp_fused", "blocktri"):
-        by_name[name]["launches_mu0_gradient_step"] = launches[name]
+    for name, source in (("eig_stage", "eig_stage"), ("bvp_fused", "bvp_fused_wide"), ("blocktri", "blocktri")):
+        by_name[name]["launches_mu0_gradient_step"] = launches[source]
     check(g.shape == (CHUNK_COLS * NBANDS,), f"(m) d loss / d mu0 has shape ({CHUNK_COLS * NBANDS},)")
     nref = len(dist)
     t0 = time.perf_counter()
@@ -1863,7 +1940,7 @@ def forward_mode(by_name):
 
     log(f"  (f) forward mode (torch.autograd.forward_ad), f32, cuda; tangents on {FWD_LANES} lanes against "
         f"float64 on the CPU")
-    others = ("eig_stage", "jacobi_eigh_wide", "blocktri", "blocktri_wide", "bvp_fused", "bvp_fused_wide")
+    others = ("eig_stage", "jacobi_eigh_wide", "blocktri", "blocktri_wide", "bvp_fused_wide")
     for nquad, seed in ((NQUAD, 42), (48, 13)):
         arrs = bench_arrays(CHUNK_COLS, seed=seed, nquad=nquad)
         problem, tau = make_problem(arrs, torch.float32, "cuda", nquad=nquad)
@@ -1942,7 +2019,7 @@ def gradient_step_nquad48(by_name):
     launches = Counter(profiling.recorded()["launches"])
     log(f"  launches in one NQuad=48 gradient step: {launches}")
     check(launches["jacobi_eigh"] >= 1 and launches["bvp_fused_wide"] == 1 and launches["blocktri"] >= 1
-          and launches["eig_stage"] == 0 and launches["bvp_fused"] == 0 and launches["jacobi_eigh_wide"] == 0
+          and launches["eig_stage"] == 0 and launches["jacobi_eigh_wide"] == 0
           and launches["blocktri_wide"] == 0,
           "the NQuad=48 gradient step takes the Jacobi kernel 4, kernel 7 once, kernel 3 for the transposed "
           "solve, and not kernels 1, 2, 5 or 6")
@@ -2078,8 +2155,7 @@ def phase_widths(kernels):
     launches = Counter(profiling.recorded()["launches"])
     log(f"  launches: {launches}")
     check(launches["jacobi_eigh_wide"] > 0 and launches["blocktri_wide"] > 0
-          and launches["eig_stage"] == launches["blocktri"] == launches["bvp_fused"] == 0
-          and launches["bvp_fused_wide"] == 0,
+          and launches["eig_stage"] == launches["blocktri"] == launches["bvp_fused_wide"] == 0,
           f"the NQuad={WIDE_NQUAD} batched solve takes kernels 5 and 6 and no other")
     for name in ("jacobi_eigh_wide", "blocktri_wide"):
         by_name[name]["launches"] = launches[name]
@@ -2114,10 +2190,9 @@ def phase_widths(kernels):
         torch.cuda.synchronize()
         launches = Counter(profiling.recorded()["launches"])
         log(f"  batched flux call at NQuad={nquad}: 1 column x {NBANDS} bands, L={NLAYERS}; launches: {launches}")
-        check(launches["jacobi_eigh_wide"] > 0 and launches["bvp_fused"] > 0
-              and launches["eig_stage"] == launches["blocktri"] == launches["blocktri_wide"] == 0
-              and launches["bvp_fused_wide"] == 0,
-              f"the NQuad={nquad} batched solve takes kernels 5 and 2")
+        check(launches["jacobi_eigh_wide"] > 0 and launches["bvp_fused_wide"] == 1
+              and launches["eig_stage"] == launches["blocktri"] == launches["blocktri_wide"] == 0,
+              f"the NQuad={nquad} batched solve takes kernels 5 and 7")
         p64, tau64 = make_problem(rows(arrs, WIDE_REF_ROWS), torch.float64, "cpu", nquad=nquad)
         for lbl, a, b in zip(("fup", "fdn", "fdir"), solve_fluxes(p64, tau64), out):
             within(a.numpy(), b[:WIDE_REF_ROWS].double().cpu().numpy(), f"NQuad={nquad} {lbl}")
@@ -2145,7 +2220,7 @@ def phase_widths(kernels):
     torch.cuda.synchronize()
     launches = Counter(profiling.recorded()["launches"])
     log(f"  batched gradient at NQuad=48, {WIDE_REF_ROWS} rows, float64; launches: {launches}")
-    check(launches["bvp_fused_wide"] == 1 and launches["blocktri"] >= 1 and launches["bvp_fused"] == 0
+    check(launches["bvp_fused_wide"] == 1 and launches["blocktri"] >= 1
           and launches["eig_stage"] == 0 and launches["jacobi_eigh"] >= 1 and launches["jacobi_eigh_wide"] == 0,
           "the NQuad=48 batched gradient takes the Jacobi kernel 4, kernel 7 once and kernel 3 for the "
           "transposed solve")
@@ -2216,8 +2291,8 @@ def phase_intensity(kernels, card):
 
     t_phase = time.perf_counter()
     by_name = {k["name"]: k for k in kernels}
-    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused", "bvp_operands")]
-    nt_on = ("eig_stage", "bvp_fused", "bvp_operands", "legendre_series")
+    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused_wide", "bvp_operands")]
+    nt_on = ("eig_stage", "bvp_fused_wide", "bvp_operands", "legendre_series")
     nt_others = [k for k in others if k not in nt_on]
     S = INT_COLS * NBANDS
     log(f"phase 8: batched intensity path, {INT_COLS} columns x {NBANDS} bands, L={NLAYERS}, NQuad={NQUAD}, "
@@ -2229,7 +2304,7 @@ def phase_intensity(kernels, card):
     probes = lambda: solve_intensity(problem, tau, phi, probes_per_layer=True)
     u, launches = launched(probes, "(a) one intensity chunk, probes per layer", nt_on, nt_others)
     for k in nt_on:
-        by_name[k]["launches_intensity_chunk"] = launches[k]
+        by_name["bvp_fused" if k == "bvp_fused_wide" else k]["launches_intensity_chunk"] = launches[k]
     check(launches["legendre_series"] == 3, "(a) the NT correction's three series, one launch each")
     check(u.shape == (S, NQUAD, NLAYERS, len(INT_PHI)) and torch.isfinite(u).all().item(),
           f"u finite with shape ({S}, {NQUAD}, {NLAYERS}, {len(INT_PHI)})")
@@ -2238,7 +2313,7 @@ def phase_intensity(kernels, card):
     log(f"  (a) {a_ms:.3f} ms per chunk ({INT_CHUNKS} chunks, best of {REPS}), "
         f"{INT_COLS / a_ms * 1e3:.3f} intensity columns/s; the probe precondition check {check_ms:.4f} ms a call "
         f"(one reduction, one host read); kernel 1 {by_name['eig_stage']['other_shapes'][-1]['ms']:.3f} ms + "
-        f"kernel 2 {by_name['bvp_fused']['other_shapes'][-1]['ms']:.3f} ms (phase 3)")
+        f"the fused solve {by_name['bvp_fused']['other_shapes'][-1]['ms']:.3f} ms (phase 3)")
     phase_trace(probes, "phase 8 (a), one intensity chunk, probes per layer", a_ms)
 
     # (b) the general path: GC materialized, layer gathers in the evaluators
@@ -2273,11 +2348,11 @@ def phase_intensity(kernels, card):
     p_act, _ = longwave_problem(lw, torch.float32, "cuda", only_flux=False)
     fluxes = lambda: solve_fluxes(p_flux, lw_tau)
     actinic = lambda: solve_actinic(p_act, lw_tau)
-    f_out, launches = launched(fluxes, "(c) one longwave flux chunk", ("eig_stage", "bvp_fused", "bvp_operands"),
-                               others)
-    for k in ("eig_stage", "bvp_fused"):
-        by_name[k]["launches_longwave_chunk"] = launches[k]
-    act_out, _ = launched(actinic, "(c) one longwave actinic chunk", ("eig_stage", "bvp_fused", "bvp_operands"),
+    f_out, launches = launched(fluxes, "(c) one longwave flux chunk",
+                               ("eig_stage", "bvp_fused_wide", "bvp_operands"), others)
+    for name, k in (("eig_stage", "eig_stage"), ("bvp_fused", "bvp_fused_wide")):
+        by_name[name]["launches_longwave_chunk"] = launches[k]
+    act_out, _ = launched(actinic, "(c) one longwave actinic chunk", ("eig_stage", "bvp_fused_wide", "bvp_operands"),
                           others)
     t0 = time.perf_counter()
     lw64 = rows(lw, LW_REF_ROWS)
@@ -2404,7 +2479,7 @@ def phase_longwave(kernels, card):
 
     t_phase = time.perf_counter()
     by_name = {k["name"]: k for k in kernels}
-    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused", "bvp_operands")]
+    others = [k for k in _build.kernel_sources() if k not in ("eig_stage", "bvp_fused_wide", "bvp_operands")]
     S, nref = CHUNK_COLS * NBANDS, REF_COLS * NBANDS
     log(f"phase 9: longwave chunk from temperatures, {CHUNK_COLS} columns x {NBANDS} bands "
         f"({LW_RANGE[0]:g}-{LW_RANGE[1]:g} cm^-1), L={NLAYERS}, NQuad={NQUAD}, NFourier=1, delta-M, no beam, "
@@ -2417,9 +2492,9 @@ def phase_longwave(kernels, card):
     # (a) temperatures -> sources -> fluxes
     chunk = lambda: temperature_chunk(arrs, T)
     out, launches = launched(chunk, "(a) one longwave chunk from temperatures",
-                             ("eig_stage", "bvp_fused", "bvp_operands"), others)
-    for k in ("eig_stage", "bvp_fused"):
-        by_name[k]["launches_temperature_chunk"] = launches[k]
+                             ("eig_stage", "bvp_fused_wide", "bvp_operands"), others)
+    for name, k in (("eig_stage", "eig_stage"), ("bvp_fused", "bvp_fused_wide")):
+        by_name[name]["launches_temperature_chunk"] = launches[k]
     check(all(x.shape == (S, NLAYERS) and torch.isfinite(x).all().item() for x in out),
           f"(a) fluxes finite with shape ({S}, {NLAYERS})")
     t0 = time.perf_counter()
@@ -2462,14 +2537,15 @@ def phase_longwave(kernels, card):
     t0 = time.perf_counter()
     g_ref = temperature_gradient(rows(a, nref), temper[:REF_COLS], torch.float64, "cpu", ("temper", "omega"))()
     log(f"  float64 CPU gradient, d / d (temper, omega) ({nref} solves) in {time.perf_counter() - t0:.1f} s")
-    for wrt, on, off in ((("temper",), ("eig_stage", "bvp_fused", "blocktri"), ("jacobi_eigh",)),
-                         (("temper", "omega"), ("jacobi_eigh", "bvp_fused", "blocktri"), ("eig_stage",))):
+    for wrt, on, off in ((("temper",), ("eig_stage", "bvp_fused_wide", "blocktri"), ("jacobi_eigh",)),
+                         (("temper", "omega"), ("jacobi_eigh", "bvp_fused_wide", "blocktri"), ("eig_stage",))):
         label = "d / d " + " and ".join(wrt)
         step = temperature_gradient(a, temper, torch.float32, "cuda", wrt)
         g, launches = launched(step, f"(b) one gradient step, {label}", on,
-                               off + ("jacobi_eigh_wide", "blocktri_wide", "bvp_fused_wide"))
+                               off + ("jacobi_eigh_wide", "blocktri_wide"))
         for k in on:
-            by_name[k][f"launches_temperature_gradient_{'_'.join(wrt)}"] = launches[k]
+            by_name["bvp_fused" if k == "bvp_fused_wide" else k][
+                f"launches_temperature_gradient_{'_'.join(wrt)}"] = launches[k]
         within_grad(g[0][:REF_COLS], g_ref[0], 2e-3, f"(b) {label}: d sum(flux_up(top)) / d temper, columns 0-1")
         if len(wrt) > 1:
             within_grad(g[1][:nref], g_ref[1], 2e-3, f"(b) {label}: d sum(flux_up(top)) / d omega, {nref} rows")
@@ -2584,11 +2660,11 @@ def phase_sweep(kernels, card):
         first, times, first_ms = sweep(True)
         launches = Counter(profiling.recorded()["launches"])
         log(f"  launches in the first overlapped sweep: {launches}; {first_ms:.3f} ms")
-        check(launches["eig_stage"] == launches["bvp_fused"] == launches["bvp_operands"] == n_chunks
+        check(launches["eig_stage"] == launches["bvp_fused_wide"] == launches["bvp_operands"] == n_chunks
               and sum(launches.values()) == 3 * n_chunks,
-              f"the sweep launches kernels 1 and 2 and the operands kernel once a chunk ({n_chunks} chunks), no other")
-        for name in ("eig_stage", "bvp_fused"):
-            next(k for k in kernels if k["name"] == name)["launches_sweep"] = launches[name]
+              f"the sweep launches kernels 1 and 7 and the operands kernel once a chunk ({n_chunks} chunks), no other")
+        for name, source in (("eig_stage", "eig_stage"), ("bvp_fused", "bvp_fused_wide")):
+            next(k for k in kernels if k["name"] == name)["launches_sweep"] = launches[source]
         check(sorted(times) == list(range(n_chunks)), f"run returns the times of all {n_chunks} chunks")
         out = first.gather()
         ref = [torch.cat(x).cpu().numpy() for x in zip(*(
@@ -2751,9 +2827,9 @@ def phase_mesh(problem, tau, kernels, card, sweep_out):
     torch.cuda.synchronize()
     launches = Counter(profiling.recorded()["launches"])
     log(f"  launches: {launches}; collectives: {counts}")
-    check(launches["eig_stage"] == launches["bvp_fused"] == launches["bvp_operands"] == 1
+    check(launches["eig_stage"] == launches["bvp_fused_wide"] == launches["bvp_operands"] == 1
           and sum(launches.values()) == 3,
-          "solve_fluxes_sharded launches kernels 1 and 2 and the operands kernel once each, no other")
+          "solve_fluxes_sharded launches kernels 1 and 7 and the operands kernel once each, no other")
     check(all(v == 0 for v in counts.values()), "count_collectives reads zero for every kind")
     check(all(torch.equal(a, b) for a, b in zip(outs, solve_fluxes(problem, tau))),
           "solve_fluxes_sharded equals solve_fluxes bit for bit")
@@ -2805,8 +2881,8 @@ def phase_mesh(problem, tau, kernels, card, sweep_out):
               f"rank {rank} holds solves {a}:{b}")
         log(f"  rank {rank}: launches {m['launches']}, collectives {m['counts']}; global_flux_stats "
             f"{m['stat_counts']} on {m['stat_device']}; float64 reference in {m['ref_s']:.1f} s")
-        check(m["launches"] == {"eig_stage": 1, "bvp_fused": 1, "blocktri": 0},
-              f"rank {rank}: kernels 1 and 2 launched once, kernel 3 not")
+        check(m["launches"] == {"eig_stage": 1, "bvp_fused_wide": 1, "blocktri": 0},
+              f"rank {rank}: kernels 1 and 7 launched once, kernel 3 not")
         check(all(v == 0 for v in m["counts"].values()), f"rank {rank}: count_collectives of the solve reads zero")
         bit_equal.append(all([near(arr[f"bench_{k}"], r[a:b], f"rank {rank} {k}", growth[a:b])
                               for k, r in zip(("fup", "fdn", "fdir"), ref)]))
@@ -2819,8 +2895,8 @@ def phase_mesh(problem, tau, kernels, card, sweep_out):
               and abs(m["stat"] - mean) < 1e-6 * abs(mean),
               f"rank {rank}: global_flux_stats is one all_reduce of CUDA tensors through gloo, within 1e-6 "
               "of the unsharded mean")
-    for k in kernels[:2]:
-        k["launches_sharded"] = [meta["bench"]["launches"][k["name"]] for meta, _ in ranks]
+    for k, source in zip(kernels[:2], ("eig_stage", "bvp_fused_wide")):
+        k["launches_sharded"] = [meta["bench"]["launches"][source] for meta, _ in ranks]
         k["launches_sharded_on"] = f"{MESH_RANKS} gloo ranks on one card, one main-path chunk a rank"
 
     # the intensity chunk on a (ranks, 1) (columns, bands) mesh
@@ -2834,9 +2910,9 @@ def phase_mesh(problem, tau, kernels, card, sweep_out):
         idx = tuple(slice(a, b) for a, b in m["index"])
         log(f"  rank {rank} (coordinates {m['coords']}): intensity rows {m['index']}, launches {m['launches']}, "
             f"collectives {m['counts']}")
-        check(m["launches"]["eig_stage"] == 1 and m["launches"]["bvp_fused"] == 1
+        check(m["launches"]["eig_stage"] == 1 and m["launches"]["bvp_fused_wide"] == 1
               and all(v == 0 for v in m["counts"].values()),
-              f"rank {rank}: the sharded intensity launches kernels 1 and 2 once, no collective")
+              f"rank {rank}: the sharded intensity launches kernels 1 and 7 once, no collective")
         near(arr["bench_intensity_u"][0], u_ref[idx][0], f"rank {rank} u, scale max|u|", u_growth[idx][0],
              scale=float(np.abs(u_ref).max()))
 
@@ -2849,8 +2925,8 @@ def phase_mesh(problem, tau, kernels, card, sweep_out):
         m = meta["bench_sweep"]
         log(f"  rank {rank}: sweep chunks {m['ran']}, launches {m['launches']}, collectives {m['counts']}; "
             f"resumed {m['resumed']}")
-        check(m["ran"] == list(range(5)) and m["launches"]["eig_stage"] == 5 and m["launches"]["bvp_fused"] == 5,
-              f"rank {rank}: the mesh sweep runs its 5 chunks, kernels 1 and 2 once a chunk")
+        check(m["ran"] == list(range(5)) and m["launches"]["eig_stage"] == 5 and m["launches"]["bvp_fused_wide"] == 5,
+              f"rank {rank}: the mesh sweep runs its 5 chunks, kernels 1 and 7 once a chunk")
         check(m["resumed"] == list(mesh_worker.SWEEP_DROPPED),
               f"rank {rank}: the resume runs exactly chunks {list(mesh_worker.SWEEP_DROPPED)}")
     check(ranks[0][0]["bench_sweep"]["resume_equal"], "the resumed directory equals the first sweep bit for bit")
@@ -2881,6 +2957,7 @@ def main():
     main_ops = capture_kernel_inputs(problem, tau)
     ops48, kernels = phase_kernels(main_ops)
     phase_intensity_kernels(kernels)
+    phase_bvp_narrow(main_ops, kernels)
     kernels += phase_wide_kernels() + [phase_bvp_wide(ops48), phase_legendre(), phase_operands(main_ops)]
     chunk_ms = phase_main_path(arrs, problem, tau, kernels)
     phase_trace(lambda: solve_fluxes(problem, tau), "phase 4, one main-path chunk", chunk_ms)

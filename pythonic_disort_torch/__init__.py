@@ -5,14 +5,13 @@ two paths: the batched solve over columns x bands (`solve_fluxes`,
 `solve_intensity`, `solve_actinic`) and the single-column solve behind
 the drop-in `pydisort` API.  The JAX package beside it is the
 reference; this package imports neither JAX nor it.  Six stages run
-nine CUDA kernels written for Hopper (``csrc/``), built with nvcc at
+eight CUDA kernels written for Hopper (``csrc/``), built with nvcc at
 first use and launched through ``ops/_build.py``:
 
 - the fused eigen stage at even N <= 32 (kernel 1, ``eig_stage.cu``;
   both paths);
-- the fused boundary-value solve of the batched path: kernel 2
-  (``bvp_fused.cu``) at 2N <= 32, kernel 7 (``bvp_fused_wide.cu``) at
-  34 <= 2N <= 64;
+- the fused boundary-value solve of the batched path: kernel 7
+  (``bvp_fused_wide.cu``) at every even 2N <= 64;
 - the generic block-Thomas solve: kernel 3 (``blocktri.cu``) at n <= 64,
   kernel 6 (``blocktri_wide.cu``) above; the single-column path, the
   batched path above 2N = 64 and the transposed solve of every gradient;

@@ -1,47 +1,50 @@
-// Fused boundary-value solve at 34 <= 2N <= 64 (kernel 7) for Hopper
+// Fused boundary-value solve at every even 2N <= 64 (kernel 7) for Hopper
 // (sm_90a).
 //
 // Replaces pythonic_disort_tpu/ops/pallas_blocktri.py::solve_bvp_fused_pallas
-// (its _fused_fwd_kernel and _fused_bwd_kernel) at the block sizes above
-// kernel 2's (csrc/bvp_fused.cu, 2N <= 32); it takes even 34 <= 2N <= 64.  It
-// computes what kernel 2's header states: per lane b, the L-layer
-// block-tridiagonal system with 2N x 2N blocks assembled inside the kernel
-// from Gt (L, 2N, 2N, B), the decays (L, N, B), the bottom boundary rows
-// (N, 2N, B) and rhs (L, 2N, B),
+// (its _fused_fwd_kernel and _fused_bwd_kernel) at every block size the TPU
+// kernel takes (it took 2N <= 32 over from kernel 2, csrc/bvp_fused.cu,
+// now retired).  Per lane b it solves the L-layer block-tridiagonal system
+// with 2N x 2N blocks assembled inside the kernel from Gt (L, 2N, 2N, B),
+// the decays (L, N, B), the bottom boundary rows (N, 2N, B) and rhs
+// (L, 2N, B),
 //
 //   Mtop_l = [G_l[:, :N] * d_l | G_l[:, N:]],  Mbot_l = [G_l[:, :N] | G_l[:, N:] * d_l]
 //   D_l    = [(+ if l == 0 else -) Mbot_l[N:] ; Mtop_l[:N] if l < L-1 else bt_rows]
 //   Low_l  = [Mtop_{l-1}[N:] ; 0],  U_l = [0 ; -Mbot_{l+1}[:N]],
 //
-// solved by the H-carry block Thomas: per layer, dhat_l[:N] = D_l[:N] +
-// C_l Mbot_l[:N] and rhat_l[:N] = r_l[:N] - C_l[:, N] with C_l =
-// Mtop_{l-1}[N:] [H_{l-1} | g_{l-1}], then one partially pivoted
-// Gauss-Jordan on [dhat_l | [0; I_N] | rhat_l] (2N x (3N+1)) gives
-// [H_l | g_l]; the last layer eliminates over [dhat | rhat] alone.  The
-// pivot is the largest |entry| of the column among the rows not yet
-// pivoted, the lowest row winning a tie; rows are not exchanged, each
-// remembers the unknown it pivoted for and one correctly rounded
-// reciprocal of its pivot, and is scaled by it when [H | g] is written out.
-// Back substitution: x_{L-1} = g_{L-1}, x_l = g_l + H_l (Mbot_{l+1}[:N] x_{l+1}).
+// by the H-carry block Thomas of the TPU kernel: since U_l's top half is
+// zero, the Thomas factor dhat_l^-1 U_l is H_l u_l with H_l = dhat_l^-1
+// [0; I_N]; per layer, dhat_l[:N] = D_l[:N] + C_l Mbot_l[:N] and
+// rhat_l[:N] = r_l[:N] - C_l[:, N] with C_l = Mtop_{l-1}[N:] [H_{l-1} |
+// g_{l-1}], then one partially pivoted Gauss-Jordan on [dhat_l | [0; I_N] |
+// rhat_l] (2N x (3N+1)) gives [H_l | g_l]; the last layer eliminates over
+// [dhat | rhat] alone.  The pivot is the largest |entry| of the column
+// among the rows not yet pivoted, the lowest row winning a tie; rows are
+// not exchanged, each remembers the unknown it pivoted for and one
+// correctly rounded reciprocal of its pivot, and is scaled by it when
+// [H | g] is written out.  Back substitution: x_{L-1} = g_{L-1}, x_l = g_l +
+// H_l (Mbot_{l+1}[:N] x_{l+1}).
 //
 // Design (kernel 3's layout, csrc/blocktri.cu).  The augmented row lives in
 // registers for the whole layer: thread (i, c) of a lane holds row i, and
 // of it the columns j = m CS + c of dhat (slots m < SD = NC / CS) and of
 // [0; I_N] (slots SD + m, m < SE = NC / 2 / CS) and rhat, CS = 2 column
-// groups.  The variants are templates on the capacity NC (48, 64), so every
-// register index is a constant and the NC steps are unrolled.  A block
-// size 2N < NC runs in the variant above it, padded: rows and columns
-// 2N..NC-1 of dhat are an identity built in the kernel (zero in every
-// real row and column), so the padded steps pivot on the padded rows, whose
-// [0; I_N] and rhat entries are zero and which are never written out; a
-// padded row holds 0 in every real column and cannot win a real step over
-// a real row (the lowest row wins a tie).  A step is one barrier of the
-// lane's warps: each warp finds its candidate (one redux, two for a 64-bit
-// key, and a ballot for the lowest row), the candidate row's threads store
-// it (from the slot of column k on) with the key, the row and the pivot's
-// reciprocal, the barrier, then every thread takes the best of the warps'
-// candidates (the lowest warp on a tie) and updates its slots right of k
-// with the pivot row read as 16-byte broadcasts.
+// groups.  The variants are templates on the capacity NC (16, 32, 48, 64;
+// the launch takes the smallest that holds 2N), so every register index is
+// a constant and the NC steps are unrolled.  A block size 2N < NC runs
+// padded: rows and columns 2N..NC-1 of dhat are an identity built in the
+// kernel (zero in every real row and column), so the padded steps pivot on
+// the padded rows, whose [0; I_N] and rhat entries are zero and which are
+// never written out; a padded row holds 0 in every real column and cannot
+// win a real step over a real row (the lowest row wins a tie).  A step is
+// one barrier of the lane's warps: each warp finds its candidate (one
+// redux, two for a 64-bit key, and a ballot for the lowest row), the
+// candidate row's threads store it (from the slot of column k on) with the
+// key, the row and the pivot's reciprocal, the barrier, then every thread
+// takes the best of the warps' candidates (the lowest warp on a tie) and
+// updates its slots right of k with the pivot row read as 16-byte
+// broadcasts.  The lanes of a block and of an SM step independently.
 //
 // What kernel 3 stages (Low, D, U) is assembled here: producer warps copy
 // G_l, d_l and r_l of the block's lanes into shared memory with cp.async,
@@ -64,35 +67,65 @@
 // two of H_l w) and add the parts with shuffles.  The ragged edge (b >= B)
 // repeats the last lane's loads and stores nothing.
 //
-// A block holds LPB lanes (a power of two, as the tiles fit in 227 KB and
-// the threads in MAX_THREADS, while the blocks still cover half of the
-// SMs) and one producer warp for every two lanes (one at most two lanes).
-// At 2N <= 48 in float32 a lane is three warps (123 registers each) and
-// 42 KB of shared memory: four lanes a block and one block an SM, so B =
-// 1024 runs in two waves on 132 SMs, as kernel 3 does at n = 48.
+// NC = 48, 64.  A block holds LPB lanes (a power of two, as the tiles fit in
+// 227 KB and the threads in MAX_THREADS, while the blocks still cover half
+// of the SMs) and one producer warp for every two lanes (one at most two
+// lanes), one block an SM: at 2N <= 48 a lane is three warps (123
+// registers each in float32, 200 in float64) and 42 KB (f32) or 78 KB
+// (f64) of shared memory: four lanes an SM in float32, two in float64; at
+// 2N <= 64, 156 and 242 registers.
 //
-// What bounds it.  At L = 64, 2N = 48, B = 1024 in float32 (the batched
-// NQuad = 48 chunk) the operands and x are 0.64 GB (0.19 ms at the card's
-// memory rate) and the solve needs 2.25e10 FLOP (0.34 ms at the float32 rate
+// NC = 16, 32 (the narrow capacities).  A lane is two warps (one at 16),
+// 25 values a thread (13 at 16), so an SM holds more lanes than at 48:
+// __launch_bounds__ asks for MINB blocks an SM of a sector's lanes and
+// their producer warps (four lanes in float64, two blocks; eight in
+// float32, one block), LANES_SM = 8 lanes an SM.  That caps the registers at 96 (float64 at NC = 32 takes 160 without
+// the cap, which leaves four lanes an SM) and in float64 leaves room for one
+// staging buffer a lane (27.5 KB; two take 37 KB).  With one buffer the
+// lanes hand it back to the producers at a named barrier (bar.arrive by the
+// lanes, bar.sync by the producers) once the correction has run: the
+// threads of rows i < N first copy Mtop_l[N + i] from it into the Mbot
+// tile, column by column (entry (i, j) at j NH + i, so that C's reads of a
+// column are conflict-free), and C_{l+1} reads it there; the producers then
+// stage layer l+1 behind the elimination and store every layer to the stack
+// (L-2 too), and the backward's second buffer is the lane's [H | g] tiles.
+// A padded row's identity is made in each layer (hoisted out of the layer
+// loop, it spills under the cap).  Float32 fits two buffers at 19.7 KB a
+// lane and keeps the design above.  Registers: 96 / 132 (float64 NC = 32 /
+// 16), 95 / 90 (float32), 0 B spilled.
+//
+// What bounds it.  At L = 60, 2N = 32, B = 7168 in float64 (the
+// sw_radiance step) the operands and x are 3.83 GB (1.14 ms at the card's
+// memory rate) and the solve needs 4.47e10 FLOP (1.31 ms at the float64
+// rate outside the tensor cores).  It takes 14.8 ms on an H100
+// (tools/check_bvp.py), 11.3x that bound; kernel 2 took 24.1 ms (rows in
+// shared memory, a block barrier every step, eight lanes an SM), and this
+// design at four lanes an SM (MINB = 1) 18.4 ms.  At B = 1792 it takes 4.28
+// ms (kernel 2: 6.88), in float32 2.89 ms at B = 1792 and 2.65 at 2048
+// (5.18, 5.20).  A wave of eight lanes an SM takes about 1.6 times a wave of
+// four: the lanes share the SM's schedulers and its shared-memory pipe
+// more than they hide each other's chains.  At L = 64, 2N = 48, B = 1024 in
+// float32 (the batched NQuad = 48 chunk) the operands and x are 0.64 GB
+// (0.19 ms) and the solve needs 2.25e10 FLOP (0.34 ms at the float32 rate
 // outside the tensor cores), so operations bound it on paper.  It takes
-// 3.89 ms on an H100 (tools/check_bvp.py), 11.6x that bound, against 9.4 ms
-// for the blocks assembled by tensor code and solved by kernel 3.  Copies
-// of the kernel with a stage skipped put about 2.2 ms in the elimination
-// steps (a dependent chain of about 0.36 us a step: redux, ballot,
-// candidate stores, barrier, pivot, multiplier, update, with four lanes an
-// SM), 0.2 ms each in the correction and in C, and 0.55 ms in the backward
-// before its [H | g] copies went 16 bytes wide (0.1 ms less after).  More
-// lanes an SM (registers hold four) or fewer steps in the chain are the
-// levers left.
+// 3.89 ms, 11.6x that bound, against 9.4 ms for the blocks assembled by
+// tensor code and solved by kernel 3.  Copies of the kernel with a stage
+// skipped put about 2.2 ms in the elimination steps (a dependent chain of
+// about 0.36 us a step: redux, ballot, candidate stores, barrier, pivot,
+// multiplier, update, with four lanes an SM), 0.2 ms each in the
+// correction and in C, and 0.55 ms in the backward before its [H | g]
+// copies went 16 bytes wide (0.1 ms less after); at 2N = 32 in float64
+// about 1 ms of the 15 lies in the correction and 0.5 in C.  Fewer steps
+// in the chain, or fewer instructions a step, are the levers left.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int N2MIN = 34;             // smallest block size 2N the kernel takes (kernel 2's are below)
 constexpr int N2MAX = 64;             // largest block size 2N the kernel takes
 constexpr size_t SMEM_MAX = 232448;   // shared memory one block may use (sm_90)
-constexpr int MAX_THREADS = 448;      // a block's threads at most: 146 registers each
+constexpr int MAX_THREADS = 448;      // a block's threads at most (NC = 48, 64): 146 registers each
+constexpr int LANES_SM = 8;           // lanes an SM at NC = 16, 32
 
 // 16 bytes of T: the width of a shared-memory broadcast load.
 template <typename T> struct VecOf;
@@ -142,7 +175,7 @@ constexpr int odd_multiple(int x, int vec) {
   return (round_up(x, vec) / vec) % 2 ? round_up(x, vec) : round_up(x, vec) + vec;
 }
 constexpr int least(int a, int b) { return a < b ? a : b; }
-// producer warps of a block of lpb lanes
+// producer warps of a block of lpb lanes at NC = 48, 64
 __host__ __device__ constexpr int producer_warps(int lpb) { return lpb >= 4 ? lpb / 2 : 1; }
 // the largest power of two lpb <= cap whose block of lanes of tpl threads
 // and producers stays within MAX_THREADS
@@ -153,7 +186,7 @@ constexpr int lanes_per_block(int cap, int tpl) {
 }
 
 // One variant: block size 2N <= NC.  Shared memory of a block, in elements
-// of T: two staging buffers (by the layer's parity), each holding every
+// of T: STAGES staging buffers (two by the layer's parity), each holding every
 // lane's STG (G: NC x LS, zero outside 2N x 2N; the scales of Mtop's and of
 // Mbot's columns, d_l where the decay applies, 1 elsewhere below 2N, 0 past
 // it; r), then each lane's
@@ -163,9 +196,14 @@ constexpr int lanes_per_block(int cap, int tpl) {
 // laid out as [H | g]); the candidate rows of the steps' two parities
 // (2 x WPL x CS x CSTP), their keys, rows and pivot reciprocals (2 x WPL
 // each); x twice and w.  The backward reuses a lane's STG of either buffer
-// for [H | g]_l, G_{l+1}[:N] and d_{l+1}.
+// (with one buffer: the STG and the [H | g] tiles) for [H | g]_l,
+// G_{l+1}[:N] and d_{l+1}.
 template <typename T, int NC>
 struct Variant {
+  // NC = 16, 32: LANES_SM lanes an SM, with one staging buffer where two
+  // do not fit them (float64)
+  static constexpr bool NARROW = NC <= 32;
+  static constexpr int STAGES = NARROW && sizeof(T) == 8 ? 1 : 2;
   static constexpr int CS = 2;
   static constexpr int VEC = 16 / sizeof(T), SECTOR = 32 / sizeof(T);
   static constexpr int NH = NC / 2;                          // capacity of N
@@ -178,16 +216,21 @@ struct Variant {
   static constexpr int RR = round_up(NC, VEC), RH = round_up(NH, VEC);
   static constexpr int STOP = NC * LS, SBOT = STOP + RR, SR = SBOT + RR;
   static constexpr int STG = SR + RR;                        // a lane's staging: G, scales, r
-  static_assert((NC * (NH + 1)) + NH * NC + NH <= STG, "the backward's operands fit a staging buffer");
+  static constexpr int BACK = NC * (NH + 1) + NH * NC + NH;  // the backward's operands of a layer
+  static_assert(BACK <= STG, "the backward's operands fit a staging buffer");
   static constexpr int WS = CS * SE + VEC, MS = CS * SD, CSTP = round_up(S, VEC);
   static constexpr int HGT = 0, MT = HGT + 2 * NC * WS, CT = MT + NH * MS, PIV = CT + NH * WS;
   static constexpr int KEYS = PIV + 2 * WPL * CS * CSTP, ROWS = KEYS + 2 * WPL, RCPS = ROWS + 2 * WPL;
   static constexpr int XV = round_up(RCPS + 2 * WPL, VEC), WV = XV + 2 * RR;
   static constexpr int REST = round_up(WV + RH, VEC);
-  static constexpr size_t LANE_BYTES = (size_t)(2 * STG + REST) * sizeof(T);
+  static_assert(STAGES == 2 || BACK <= 2 * NC * WS, "the backward's operands fit the [H | g] tiles");
+  static constexpr size_t LANE_BYTES = (size_t)(STAGES * STG + REST) * sizeof(T);
   static_assert(LANE_BYTES <= SMEM_MAX, "a lane's tiles fit in shared memory");
-  static constexpr int MAXLPB = lanes_per_block(least(SECTOR, (int)(SMEM_MAX / LANE_BYTES)), TPL);
+  static constexpr int MAXLPB = NARROW ? least(SECTOR, (int)(SMEM_MAX / LANE_BYTES))
+                                       : lanes_per_block(least(SECTOR, (int)(SMEM_MAX / LANE_BYTES)), TPL);
+  static_assert(!NARROW || MAXLPB == SECTOR, "a sector's lanes fit a block");
   static constexpr int MAXT = TPL * MAXLPB + 32 * producer_warps(MAXLPB);
+  static constexpr int MINB = NARROW ? LANES_SM / MAXLPB : 1;   // blocks an SM
 };
 
 template <typename T>
@@ -196,7 +239,7 @@ __device__ __forceinline__ T elem(const typename VecOf<T>::type& v, int e) {
 }
 
 template <typename T, int NC>
-__global__ void __launch_bounds__(Variant<T, NC>::MAXT, 1)
+__global__ void __launch_bounds__(Variant<T, NC>::MAXT, Variant<T, NC>::MINB)
 bvp_wide_kernel(const T* __restrict__ Gt, const T* __restrict__ decay, const T* __restrict__ bt_rows,
                 const T* __restrict__ rhs, T* __restrict__ HG, T* __restrict__ X, int L, int n2, int B,
                 int lpb) {
@@ -219,12 +262,15 @@ bvp_wide_kernel(const T* __restrict__ Gt, const T* __restrict__ decay, const T* 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* base = reinterpret_cast<T*>(smem_raw);
   // staging buffer s of lane u: base + (s lpb + u) STG; then each lane's REST
-  T* const rests = base + (size_t)2 * lpb * STG;
+  T* const rests = base + (size_t)Var::STAGES * lpb * STG;
+  // the barrier at which the lanes hand a single staging buffer back to the
+  // producers: the lanes arrive, the producers wait
+  const int free_bar = lpb + 2;
 
-  for (int z = tid; z < lpb * (2 * STG + Var::REST); z += blockDim.x) base[z] = T(0);
+  for (int z = tid; z < lpb * (Var::STAGES * STG + Var::REST); z += blockDim.x) base[z] = T(0);
   __syncthreads();
   // the scales' constant part: 1 in Mtop's columns N..2N-1 and Mbot's 0..N-1
-  for (int z = tid; z < 2 * lpb * n2; z += blockDim.x) {
+  for (int z = tid; z < Var::STAGES * lpb * n2; z += blockDim.x) {
     const int j = z % n2;
     base[(size_t)(z / n2) * STG + (j < N ? Var::SBOT : Var::STOP) + j] = T(1);
   }
@@ -254,7 +300,7 @@ bvp_wide_kernel(const T* __restrict__ Gt, const T* __restrict__ decay, const T* 
       }
     };
     auto stage = [&](int l) {
-      T* tile = base + ((size_t)(l & 1) * lpb + u) * STG;
+      T* tile = base + ((size_t)(l & (Var::STAGES - 1)) * lpb + u) * STG;
       stage_mat(Gt + l * gblk, tile, n2, n2, LS);
       stage_mat(decay + (size_t)l * N * B, tile + Var::STOP, 1, N, 0);
       stage_mat(decay + (size_t)l * N * B, tile + Var::SBOT + N, 1, N, 0);
@@ -291,19 +337,26 @@ bvp_wide_kernel(const T* __restrict__ Gt, const T* __restrict__ decay, const T* 
     for (int l = 0; l < L; ++l) {
       copy_async_wait();
       __syncthreads();                           // layer l's tiles have arrived
-      if (l < L - 1) stage(l + 1);               // in flight behind the elimination
-      // the back substitution takes layer L-2 from its tile
-      if (l >= 1 && l - 1 <= L - 3) store_stack(l - 1);
+      if (l < L - 1) {
+        // one buffer: the lanes have read layer l's
+        if (Var::STAGES == 1) asm volatile("bar.sync %0, %1;\n" ::"r"(free_bar), "r"(blockDim.x) : "memory");
+        stage(l + 1);                            // in flight behind the elimination
+      }
+      // with two staging buffers the back substitution takes layer L-2
+      // from its tile
+      if (l >= 1 && l - 1 <= L - 1 - Var::STAGES) store_stack(l - 1);
       if (l == L - 2) stage_bt();
     }
     if (L == 1) return;
     // the backward: layer l's set ([H | g]_l from the stack but for l =
-    // L-2, G_{l+1}[:N], d_{l+1}) into staging buffer (L-2-l) & 1 of each
-    // lane, one layer ahead of the lanes
+    // L-2 with two buffers, G_{l+1}[:N], d_{l+1}) into buffer (L-2-l) & 1
+    // of each lane (with one staging buffer, buffer 1 is the [H | g]
+    // tiles), one layer ahead of the lanes
     const int goff = (int)hgl, doff = goff + N * n2;
     auto stage_back = [&](int l) {
-      T* set = base + ((size_t)((L - 2 - l) & 1) * lpb + u) * STG;
-      if (l < L - 2) {
+      const int s = (L - 2 - l) & 1;
+      T* set = Var::STAGES == 1 && s ? rests + (size_t)u * Var::REST + Var::HGT : base + ((size_t)s * lpb + u) * STG;
+      if (l < L - 2 || Var::STAGES == 1) {
         // a lane's layer of the stack is contiguous and 16-byte aligned
         // (2N (N+1) is a multiple of 4): 16 bytes a copy
         const T* src = HG + ((size_t)bs * L + l) * hgl;
@@ -337,12 +390,16 @@ bvp_wide_kernel(const T* __restrict__ Gt, const T* __restrict__ decay, const T* 
   for (int l = 0; l < L; ++l) {
     const bool last = l == L - 1;
     __syncthreads();                             // layer l's tiles, every lane's, have arrived
-    const T* st = base + ((size_t)(l & 1) * lpb + t) * STG;
+    const T* st = base + ((size_t)(l & (Var::STAGES - 1)) * lpb + t) * STG;
     const T* stop = st + Var::STOP;              // the scales of Mtop_l's columns
     T a[Var::S];
     if (i >= n2) {
       // a padded row: the identity in dhat's padded columns, zero elsewhere
-      const int ps = (i - c) % CS ? -1 : (i - c) / CS;
+      int ps = (i - c) % CS ? -1 : (i - c) / CS;
+      // NC = 16, 32: opaque to the compiler, so that the row is built here
+      // in every layer (hoisted out of the layer loop, it is kept whole and
+      // spills under the register cap of MINB blocks an SM)
+      if (Var::NARROW) asm volatile("" : "+r"(ps));
 #pragma unroll
       for (int m = 0; m < SD; ++m) a[m] = T(m == ps);
 #pragma unroll
@@ -394,6 +451,19 @@ bvp_wide_kernel(const T* __restrict__ Gt, const T* __restrict__ decay, const T* 
         }
         a[RHS] -= crow[CS * SE];
       }
+    }
+    if (Var::STAGES == 1 && !last) {
+      // one staging buffer: Mtop_l[N:] into the Mbot tile, column by column
+      // (entry (i, j) at j NH + i), for C_{l+1}; then the buffer goes back to
+      // the producers
+      if (l > 0) lane_sync();                    // the correction has read the Mbot tile
+      if (i < N) {
+        const T* g = st + (N + i) * LS + c;
+        const T* ts = stop + c;
+#pragma unroll 4
+        for (int m = 0; m < SD; ++m) sM[(m * CS + c) * Var::NH + i] = g[m * CS] * ts[m * CS];
+      }
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(free_bar), "r"(blockDim.x) : "memory");
     }
 
     // ---- Gauss-Jordan with partial pivoting; rows never move ----
@@ -496,7 +566,7 @@ bvp_wide_kernel(const T* __restrict__ Gt, const T* __restrict__ decay, const T* 
         for (int m = 0; m < SE; ++m) acc[m] = T(0);
         T accg = T(0);
         for (int k = 0; k < n2; ++k) {
-          const T lo = lrow[k] * stop[k];
+          const T lo = Var::STAGES == 1 ? sM[k * Var::NH + i] : lrow[k] * stop[k];
           const T* hk = hg + k * WS;
 #pragma unroll
           for (int m0 = 0; m0 < SE; m0 += VEC) {
@@ -536,7 +606,8 @@ bvp_wide_kernel(const T* __restrict__ Gt, const T* __restrict__ decay, const T* 
   const int goff = (int)hgl, doff = goff + N * n2;
   for (int l = L - 2; l >= 0; --l) {
     __syncthreads();                             // layer l's set has arrived, x_{l+1} is written
-    const T* set = base + ((size_t)((L - 2 - l) & 1) * lpb + t) * STG;
+    const int s = (L - 2 - l) & 1;
+    const T* set = Var::STAGES == 1 && s ? mine + Var::HGT : base + ((size_t)s * lpb + t) * STG;
     // w = Mbot_{l+1}[:N] x_{l+1}: four neighbouring threads an entry, each
     // summing every fourth column, then added pairwise
     {
@@ -558,7 +629,7 @@ bvp_wide_kernel(const T* __restrict__ Gt, const T* __restrict__ decay, const T* 
       const int o = q >> 1, p = q & 1;
       T acc = T(0), g = T(0);
       if (o < n2) {
-        if (l == L - 2) {
+        if (Var::STAGES == 2 && l == L - 2) {
           const T* row = sHG + (l & 1) * NC * WS + o * WS;
           g = row[CS * SE];
           for (int k = p; k < N; k += 2) acc += row[p * SE + k / CS] * wv[k];
@@ -592,6 +663,9 @@ int launch(const T* Gt, const T* decay, const T* bt_rows, const T* rhs, T* HG, T
   const size_t smem = (size_t)lpb * Var::LANE_BYTES;
   auto kern = bvp_wide_kernel<T, NC>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // MINB blocks share an SM: all of its shared memory for them
+  if (err == cudaSuccess && Var::MINB > 1)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const int threads = lpb * Var::TPL + 32 * producer_warps(lpb);
   kern<<<(B + lpb - 1) / lpb, threads, smem, stream>>>(Gt, decay, bt_rows, rhs, HG, X, L, n2, B, lpb);
@@ -601,12 +675,14 @@ int launch(const T* Gt, const T* decay, const T* bt_rows, const T* rhs, T* HG, T
 template <typename T>
 int dispatch(const T* Gt, const T* decay, const T* bt_rows, const T* rhs, T* HG, T* X,
              int L, int n2, int B, void* stream) {
-  if (L < 1 || n2 < N2MIN || n2 > N2MAX || n2 % 2 != 0 || B < 1) return (int)cudaErrorInvalidValue;
+  if (L < 1 || n2 < 2 || n2 > N2MAX || n2 % 2 != 0 || B < 1) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n2 <= 16) return launch<T, 16>(Gt, decay, bt_rows, rhs, HG, X, L, n2, B, sms, st);
+  if (n2 <= 32) return launch<T, 32>(Gt, decay, bt_rows, rhs, HG, X, L, n2, B, sms, st);
   if (n2 <= 48) return launch<T, 48>(Gt, decay, bt_rows, rhs, HG, X, L, n2, B, sms, st);
   return launch<T, 64>(Gt, decay, bt_rows, rhs, HG, X, L, n2, B, sms, st);
 }

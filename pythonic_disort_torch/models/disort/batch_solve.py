@@ -28,7 +28,7 @@ crosses the lane dimension:
   CUDA kernel ``bvp_operands.cu`` on the card);
 - the BVP is `ops.cuda_blocktri.solve_bvp_fused` at every 2N, fed the
   eigenvector blocks, decays and bottom boundary rows; it routes by width
-  (CUDA kernel 2 at 2N <= 32, kernel 7 at 34 <= 2N <= 64; wider systems,
+  (CUDA kernel 7 at 2N <= 64; wider systems,
   where the JAX package runs its jnp path, have their blocks assembled
   and solved by the generic block-Thomas solve, kernel 6 there);
 - the flux quadrature ``(mu W) @ G C`` is folded into per-layer tables

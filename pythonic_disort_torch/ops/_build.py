@@ -65,7 +65,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # part "", take the stream last and return a CUDA error code).
 SIGNATURES = {
     "eig_stage": {"": ([_P] * 7 + [_I] * 3 + [_P], _I), "rows": ([_I], _I)},
-    "bvp_fused": {"": ([_P] * 6 + [_I] * 3 + [_P], _I)},
     "bvp_fused_wide": {"": ([_P] * 6 + [_I] * 3 + [_P], _I)},
     "blocktri": {"": ([_P] * 6 + [_I] * 3 + [_P], _I)},
     "blocktri_wide": {"": ([_P] * 7 + [_I] * 3 + [_P], _I), "workspace": ([_I] * 2, ctypes.c_size_t)},

@@ -5,11 +5,11 @@ Counterpart of ``pythonic_disort_tpu/ops/pallas_blocktri.py``.
 `solve_bvp_fused` (for ``solve_bvp_fused_pallas``): the L-layer
 block-tridiagonal boundary-value system is assembled from the eigenvector
 blocks and decays inside the kernel and solved by block Thomas with
-partial pivoting, at the 2N <= 64 the TPU kernel takes: ``csrc/bvp_fused.cu``
-(kernel 2) at 2N <= 32, ``csrc/bvp_fused_wide.cu`` (kernel 7,
-`solve_bvp_fused_wide`) at 34 <= 2N <= 64.  Their plain version assembles
-the blocks (`blocktri.assemble_bvp_blocks`) and runs the pivoted
-block-Thomas loop (`blocktri.solve_block_tridiag_lanes`).  Above 2N = 64,
+partial pivoting, at the 2N <= 64 the TPU kernel takes:
+``csrc/bvp_fused_wide.cu`` (kernel 7, `solve_bvp_fused_wide`; it took over
+2N <= 32 from kernel 2, ``csrc/bvp_fused.cu``, which is retired).  Its
+plain version assembles the blocks (`blocktri.assemble_bvp_blocks`) and
+runs the pivoted block-Thomas loop (`blocktri.solve_block_tridiag_lanes`).  Above 2N = 64,
 where the JAX package runs its jnp path, `solve_bvp_fused` assembles the
 blocks and hands them to `solve_block_tridiag_lanes_cuda`: the batched
 solve calls `solve_bvp_fused` at every 2N, and the choice of route by
@@ -26,8 +26,8 @@ jnp block Thomas.  Their plain version is
 Every kernel is launched through `_build.launch` after the operands are
 checked (CUDA tensors on one device, float32 or float64, the shapes, the
 sizes the kernel takes, contiguous, no forward-mode tangent); each
-launch is counted under its source's name (``bvp_fused``,
-``bvp_fused_wide``, ``blocktri``, ``blocktri_wide``).
+launch is counted under its source's name (``bvp_fused_wide``,
+``blocktri``, ``blocktri_wide``).
 
 The solution of either system is unique, so a kernel and its plain
 version are compared directly on x.
@@ -60,7 +60,6 @@ def solve_bvp_fused_plain(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
 
 
 FUSED_BLOCK_MAX = 64    # largest block size 2N of the fused solve (csrc/bvp_fused_wide.cu)
-FUSED_NARROW_MAX = 32   # largest block size 2N of csrc/bvp_fused.cu
 BLOCK_MAX = 64          # largest block size n of csrc/blocktri.cu
 
 
@@ -97,7 +96,7 @@ def _check_bvp(name, Gt, decay_t, bt_rows, rhs_t):
            dict(Gt=(L, n2, n2, B), decay_t=(L, N, B), bt_rows=(N, n2, B), rhs_t=(L, n2, B)))
     if n2 % 2 or not 2 <= n2 <= FUSED_BLOCK_MAX or L < 1 or B < 1:
         raise ValueError(
-            f"{name}: the fused kernels take even 2N <= {FUSED_BLOCK_MAX}, L >= 1, B >= 1 (larger blocks go "
+            f"{name}: the fused kernel takes even 2N <= {FUSED_BLOCK_MAX}, L >= 1, B >= 1 (larger blocks go "
             f"through assemble_bvp_blocks and solve_block_tridiag_lanes_cuda); got {tuple(Gt.shape)}")
     return L, n2, B
 
@@ -107,23 +106,15 @@ def _bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     ops = (Gt, decay_t, bt_rows, rhs_t)
     if all(x.device.type == "cpu" for x in ops):
         return solve_bvp_fused_plain(*ops)
-    L, n2, B = _check_bvp("solve_bvp_fused", *ops)
-    if n2 > FUSED_NARROW_MAX:
-        return solve_bvp_fused_wide(*ops)
-    # [H_l | g_l] stack written by the forward sweep, read by the backward
-    HG = torch.empty((L, n2, n2 // 2 + 1, B), dtype=Gt.dtype, device=Gt.device)
-    return _launch("bvp_fused", ops, HG, torch.empty_like(rhs_t), (L, n2, B))
+    return solve_bvp_fused_wide(*ops)
 
 
 def solve_bvp_fused_wide(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     """Launch kernel 7 (``csrc/bvp_fused_wide.cu``) on CUDA operands of
-    even 34 <= 2N <= 64 (see `solve_bvp_fused` for shapes); returns x
+    even 2 <= 2N <= 64 (see `solve_bvp_fused` for shapes); returns x
     (L, 2N, B).  No gradient rule: `solve_bvp_fused` sends that range
     here."""
     ops = (Gt, decay_t, bt_rows, rhs_t)
-    if Gt.dim() == 4 and Gt.shape[1] <= FUSED_NARROW_MAX:
-        raise ValueError(f"solve_bvp_fused_wide: kernel 7 takes 2N > {FUSED_NARROW_MAX} (smaller blocks go "
-                         f"through solve_bvp_fused's kernel 2); got {tuple(Gt.shape)}")
     L, n2, B = _check_bvp("solve_bvp_fused_wide", *ops)
     # [H_l | g_l] stack, lane-major: written by the forward sweep, read by
     # the backward
@@ -306,8 +297,8 @@ def solve_bvp_fused(Gt, decay_t, bt_rows, rhs_t) -> torch.Tensor:
     ``Gt`` (L, 2N, 2N, B) eigenvector blocks, ``decay_t`` (L, N, B)
     homogeneous decays, ``bt_rows`` (N, 2N, B) bottom boundary rows,
     ``rhs_t`` (L, 2N, B).  Up to 2N = 64, CPU tensors take
-    `solve_bvp_fused_plain`; CUDA tensors launch kernel 2 at 2N <= 32 and
-    kernel 7 at 34 <= 2N <= 64 (`solve_bvp_fused_wide`), or raise; the
+    `solve_bvp_fused_plain`; CUDA tensors launch kernel 7
+    (`solve_bvp_fused_wide`), or raise; the
     backward assembles the blocks and solves the transposed system with
     `solve_block_tridiag_lanes_cuda`'s kernel.  Wider systems, where the
     JAX package runs its jnp path, have their blocks assembled

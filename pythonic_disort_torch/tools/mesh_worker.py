@@ -193,7 +193,7 @@ def launches():
     from pythonic_disort_torch.utils import profiling
 
     counts = profiling.recorded()["launches"]
-    return {k: counts.get(k, 0) for k in ("eig_stage", "bvp_fused", "blocktri")}
+    return {k: counts.get(k, 0) for k in ("eig_stage", "bvp_fused_wide", "blocktri")}
 
 
 def counted_launches(r, run):

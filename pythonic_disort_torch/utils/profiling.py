@@ -47,7 +47,7 @@ The spans (``device`` marks those timed on the device as well):
   profiler: a load happens once a kernel a process.
 
 Each kernel launch (``ops/_build.py::launch``) is counted under
-``launches``, by the kernel's source name (``eig_stage``, ``bvp_fused``,
+``launches``, by the kernel's source name (``eig_stage``,
 ``bvp_fused_wide``, ``blocktri``, ``blocktri_wide``, ``jacobi_eigh``,
 ``jacobi_eigh_wide``, ``legendre_series``, ``bvp_operands``), with or
 without a profiler: ``legendre_series`` once a Legendre series on the

@@ -59,8 +59,10 @@ def test_bvp_solve_matches_jax(L, N, B):
 
 
 def _h_carry_model(Gt, decay, bt_rows, rhs):
-    """numpy model of the fused kernel's order of operations
-    (``csrc/bvp_fused.cu``), one lane at a time: the blocks assembled from
+    """numpy model of the fused solve's H-carry block Thomas, one lane at
+    a time (the order of operations of the retired kernel 2; kernel 7,
+    ``csrc/bvp_fused_wide.cu``, keeps it but for the order of its sums,
+    which ``tests/test_torch_bvp_wide.py`` models): the blocks assembled from
     G, the decays and the boundary rows; the correction
     ``dhat[:N] = D[:N] + C Mbot_l[:N]`` with ``C = Mtop_{l-1}[N:] [H | g]``
     of the layer before; Gauss-Jordan on ``[dhat | [0; I_N] | rhat]`` with

@@ -1,10 +1,11 @@
-"""The fused boundary-value solve at 34 <= 2N <= 64 (kernel 7,
+"""The fused boundary-value solve at every even 2N <= 64 (kernel 7,
 ``pythonic_disort_torch/csrc/bvp_fused_wide.cu``) held against the JAX
 package in float64 on the CPU.
 
 `_kernel_model` follows the kernel's order of operations in numpy, one
-lane at a time: the variant (capacity NC = 48 or 64) that the launch
-picks at 2N; the rows of dhat and the columns past 2N padded with an
+lane at a time: the variant (capacity NC = 16, 32, 48 or 64, the
+smallest that holds 2N) that the launch picks; the rows of dhat and the
+columns past 2N padded with an
 identity built in the kernel; D_l assembled from G_l, the decays and
 layer 0's sign (bt_rows on the last layer), the [0; I_N] columns set in
 place; the correction ``dhat[:N] += C_l Mbot_l[:N]`` summed in k order
@@ -27,6 +28,8 @@ NQuad = 48 close the file.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -74,9 +77,12 @@ def _operands(L, N, B, seed):
     return Gt, decay, bt_rows, rhs
 
 
+CAPACITIES = (16, 32, 48, 64)
+
+
 def _capacity(n2):
-    """The variant the launch picks: NC = 48 at 2N <= 48, else 64."""
-    return 48 if n2 <= 48 else 64
+    """The variant the launch picks: the smallest capacity NC >= 2N."""
+    return next(nc for nc in CAPACITIES if n2 <= nc)
 
 
 def _key(x, used):
@@ -195,11 +201,14 @@ def _close(x, x_ref):
 
 
 @pytest.mark.parametrize("L,N,zero_lead,itemsize", [(3, 17, False, 8), (3, 24, False, 4), (2, 24, True, 8),
-                                                    (3, 32, False, 8), (1, 25, False, 4), (2, 32, True, 4)])
+                                                    (3, 32, False, 8), (1, 25, False, 4), (2, 32, True, 4),
+                                                    (3, 1, False, 8), (2, 1, False, 4), (3, 8, False, 4),
+                                                    (2, 15, True, 8), (3, 16, False, 8), (1, 16, False, 4)])
 def test_model_matches_jax(L, N, zero_lead, itemsize):
-    """The model within 1e-10 of the JAX package at 2N = 34, 48, 50 and 64,
-    L = 1 included; the elimination pivots off the diagonal, and the
-    padded rows pivot for the padded unknowns."""
+    """The model within 1e-10 of the JAX package at 2N = 2, 16, 30, 32, 34,
+    48, 50 and 64 (in each capacity, padded and exact), L = 1 included; the
+    elimination pivots off the diagonal, and the padded rows pivot for the
+    padded unknowns."""
     ops = _operands(L, N, 2, seed=70 + L + N)
     if zero_lead:
         # D_0[0, 0] = Mbot_0[N, 0] = 0: an unpivoted elimination divides by zero
@@ -231,7 +240,8 @@ def _tied(L, N, ties, seed):
 
 
 @pytest.mark.parametrize("N,ties,winner,itemsize", [(24, (40, 20, 5), 5, 4), (24, (45, 19), 19, 8),
-                                                    (32, (63, 31, 12), 12, 8), (17, (30, 18), 18, 4)])
+                                                    (32, (63, 31, 12), 12, 8), (17, (30, 18), 18, 4),
+                                                    (16, (31, 16, 3), 3, 8), (16, (25, 17), 17, 4)])
 def test_tied_pivots_take_the_lowest_row(N, ties, winner, itemsize):
     """Column 0 of D_0 holds its largest |entry| at several rows, in one
     warp or in different warps: the lowest row pivots for unknown 0, and x
@@ -242,12 +252,16 @@ def test_tied_pivots_take_the_lowest_row(N, ties, winner, itemsize):
     _close(x, _jax_x(ops))
 
 
-def test_pivot_scan_keys_and_ties():
-    """The per-warp scan with 32- and 64-bit keys over the 64 rows of the
-    wide variant: the largest |entry| of the unused rows, the lowest row on
-    a tie, whichever warp holds it."""
-    NC = 64
-    for rows, want in (([40, 7, 5], 5), ([63, 33], 33), ([31, 32], 31), ([1, 2, 3], 1)):
+@pytest.mark.parametrize("NC", [16, 32, 64])
+def test_pivot_scan_keys_and_ties(NC):
+    """The per-warp scan with 32- and 64-bit keys over the rows of a
+    capacity (one warp at NC = 16, two at 32, four at 64): the largest
+    |entry| of the unused rows, the lowest row on a tie, whichever warp
+    holds it."""
+    cases = {64: [([40, 7, 5], 5), ([63, 33], 33), ([31, 32], 31), ([1, 2, 3], 1)],
+             32: [([30, 7, 5], 5), ([31, 17], 17), ([15, 16], 15), ([1, 2, 3], 1)],
+             16: [([14, 7, 5], 5), ([15, 9], 9), ([1, 2, 3], 1)]}[NC]
+    for rows, want in cases:
         col = np.zeros(NC)
         col[rows] = [(-1.0) ** k * 2.0 for k in range(len(rows))]
         for ck in (0, 1):
@@ -256,12 +270,12 @@ def test_pivot_scan_keys_and_ties():
     used = np.zeros(NC, bool)
     used[[5, 1]] = True
     col = np.zeros(NC)
-    col[[1, 5, 9, 60]] = 3.0
+    col[[1, 5, 9, NC - 4]] = 3.0
     assert _pivot(col, used, 1, True) == 9
     # 64-bit keys that differ in the low word alone
     col = np.zeros(NC)
-    col[20], col[50] = 1.0, np.nextafter(1.0, 2.0)
-    assert _pivot(col, np.zeros(NC, bool), 0, True) == 50
+    col[NC // 4 + 4], col[NC - 14] = 1.0, np.nextafter(1.0, 2.0)
+    assert _pivot(col, np.zeros(NC, bool), 0, True) == NC - 14
 
 
 @pytest.mark.parametrize("L,N,B", [(3, 17, 3), (2, 24, 4), (1, 24, 2), (3, 32, 2)])
@@ -289,20 +303,36 @@ def test_wrapper_refuses_non_cuda_tensors():
         cuda_blocktri.solve_bvp_fused_wide(*cpu)
 
 
-@pytest.mark.parametrize("n2", [2, 32])
-def test_wide_wrapper_refuses_kernel_2_sizes(n2):
-    """Kernel 7's entry point takes 34 <= 2N <= 64 alone: at 2N <= 32 it
-    raises before any tensor is read (kernel 2 serves those sizes)."""
+@pytest.mark.parametrize("n2", [2, 32, 16, 30, 34, 64])
+def test_wide_wrapper_refuses_kernel_2_sizes(monkeypatch, n2):
+    """Kernel 2 (2N <= 32) is retired and kernel 7 refuses no even
+    2 <= 2N <= 64: its wrapper launches ``bvp_fused_wide`` with (L, 2N, B)
+    and a lane-major [H | g] stack (B, L, 2N, N+1), and the kernel's
+    dispatch (read from ``csrc/bvp_fused_wide.cu``) picks the smallest
+    capacity NC >= 2N, the one `_kernel_model` runs."""
+    launched = []
+    monkeypatch.setattr(cuda_blocktri, "_check", lambda *args: None)      # CPU tensors stand in
+    monkeypatch.setattr(cuda_blocktri, "_launch",
+                        lambda name, ops, scratch, x, sizes: launched.append((name, scratch.shape, sizes)) or x)
+    L, B = 3, 8
     ops = [torch.zeros(s, dtype=torch.float32)
-           for s in ((2, n2, n2, 8), (2, n2 // 2, 8), (n2 // 2, n2, 8), (2, n2, 8))]
-    with pytest.raises(ValueError, match="kernel 7 takes 2N > 32"):
-        cuda_blocktri.solve_bvp_fused_wide(*ops)
+           for s in ((L, n2, n2, B), (L, n2 // 2, B), (n2 // 2, n2, B), (L, n2, B))]
+    cuda_blocktri.solve_bvp_fused_wide(*ops)
+    assert launched == [("bvp_fused_wide", (B, L, n2, n2 // 2 + 1), (L, n2, B))]
+    src = (Path(cuda_blocktri.__file__).parents[1] / "csrc" / "bvp_fused_wide.cu").read_text()
+    body = src[src.index("int dispatch("):]
+    body = body[:body.index("\n}\n")]
+    assert "n2 < 2 ||" in body and "n2 > N2MAX" in body and "constexpr int N2MAX = 64;" in src
+    guarded = [(int(a), int(b)) for a, b in re.findall(r"if \(n2 <= (\d+)\) return launch<T, (\d+)>", body)]
+    last = int(re.findall(r"\n  return launch<T, (\d+)>", body)[-1])
+    assert all(a == b for a, b in guarded) and [a for a, _ in guarded] + [last] == list(CAPACITIES)
+    assert next(nc for nc in [a for a, _ in guarded] + [last] if n2 <= nc) == _capacity(n2)
 
 
 def _spy(monkeypatch):
     """Count the calls of the two boundary-value routes behind
-    `solve_bvp_fused`: the fused solve (``_bvp_fused``, kernels 2 and 7 on
-    the card) and the generic block-Thomas solve on assembled blocks."""
+    `solve_bvp_fused`: the fused solve (``_bvp_fused``, kernel 7 on the
+    card) and the generic block-Thomas solve on assembled blocks."""
     calls = {"_bvp_fused": 0, "solve_block_tridiag_lanes_cuda": 0}
     for name in calls:
         wrapped = getattr(cuda_blocktri, name)

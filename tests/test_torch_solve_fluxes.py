@@ -89,9 +89,9 @@ def test_solve_fluxes_matches_jax_bench_shape():
 
 
 def test_solve_fluxes_matches_jax_nquad48():
-    """NQuad = 48: 2N = 48 > 32, past kernel 2, so the batched solve hands
-    the boundary-value operands to `solve_bvp_fused`, which launches
-    kernel 7 on the card (on CPU tensors, its plain version)."""
+    """NQuad = 48: the batched solve hands the boundary-value operands to
+    `solve_bvp_fused`, which launches kernel 7's capacity NC = 48 on the
+    card (on CPU tensors, its plain version)."""
     problem, tau = _problem(3, 1, True, False, False, True, True, S=2, nquad=48, seed=3)
     assert_fluxes_match(problem, tau)
 
